@@ -1,0 +1,173 @@
+"""The port's two-pass dynamic-conv stem (uavdet_tpu_torch/ops/stem.py)
+against the JAX package's Pallas kernels (interpret mode) and flax layers.
+
+On the CPU the stem runs the plain PyTorch versions of kernels A and B, the
+ones the card compares its kernels with. Both sides round the same operands
+to bf16 and accumulate in f32; only the order of the f32 sums differs, which
+moves a result across a bf16 rounding boundary rarely (one ulp, 2^-8
+relative). Hence the bound used throughout: at least 99.9 % of elements
+bitwise equal, and all within rtol 1.6e-2, atol 1e-2.
+"""
+
+import numpy as np
+import pytest
+import torch
+import jax
+import jax.numpy as jnp
+
+from uavdet_tpu.models import DyYOLO as JaxDyYOLO
+from uavdet_tpu.models.layers import DyConvModule as JaxDyConv
+from uavdet_tpu.ops.pallas_stem import mix_and_fold as jax_mix_and_fold
+from uavdet_tpu.ops.pallas_stem_split import fused_stem_forward as jax_stem
+from uavdet_tpu.ops.pallas_stem_split import pallas_l1
+from uavdet_tpu_torch.models import DyYOLO
+from uavdet_tpu_torch.ops.stem import (fused_stem_forward, mix_and_fold,
+                                       stem_l1, stem_l1_plain, stem_l2)
+from uavdet_tpu_torch.utils.weights import load_flax_variables
+
+CFG = (("DyConv", 32, 3, 1), ("DyConv", 64, 3, 2), ("B", 1), ("S",))
+RTOL, ATOL, MIN_EQUAL = 1.6e-2, 1e-2, 0.999
+
+
+def perturb_bn(variables, rng):
+    """Random BN affine and running statistics, so that folding BN into the
+    kernel matrices is exercised (flax initializes them to identity)."""
+    def walk(p, s):
+        for k in p:
+            if k.startswith("BatchNorm"):
+                n = p[k]["scale"].shape
+                p[k] = dict(scale=rng.uniform(0.8, 1.2, n).astype(np.float32),
+                            bias=rng.normal(0, 0.05, n).astype(np.float32))
+                s[k] = dict(mean=rng.normal(0, 0.05, n).astype(np.float32),
+                            var=rng.uniform(0.8, 1.2, n).astype(np.float32))
+            elif isinstance(p[k], dict) and k in s:
+                walk(p[k], s[k])
+
+    v = jax.tree.map(np.asarray, variables)
+    walk(v["params"], v["batch_stats"])
+    return v
+
+
+@pytest.fixture(scope="module")
+def stem_models():
+    jm = JaxDyYOLO(layer_config=CFG, attn_temperature=30.0)
+    v = jax.jit(jm.init)(jax.random.key(0), jnp.zeros((1, 64, 64, 3)))
+    v = perturb_bn(v, np.random.default_rng(5))
+    tm = DyYOLO(CFG, attn_temperature=30.0).eval()
+    load_flax_variables(tm, v)
+    return v, tm
+
+
+def _frames(rng, shape, uint8):
+    u8 = (rng.uniform(size=shape) * 255).astype(np.uint8)
+    return u8 if uint8 else u8.astype(np.float32) / 255.0
+
+
+def _assert_bf16_close(got, want):
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    assert got.shape == want.shape
+    assert (got == want).mean() >= MIN_EQUAL, (got == want).mean()
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("uint8", [True, False])
+def test_kernel_a_plain_matches_pallas_l1(rng, uint8):
+    x = _frames(rng, (2, 64, 128, 3), uint8)
+    k1 = (rng.normal(size=(2, 32, 28)) * 0.05).astype(np.float32)
+    banks, sums = pallas_l1(jnp.asarray(x), jnp.asarray(k1), interpret=True)
+    # bank q = 2 * row parity + column parity, channel-major
+    want = np.zeros((2, 64, 128, 32), np.float32)
+    for q, bank in enumerate(banks):
+        rp, cp = divmod(q, 2)
+        want[:, rp::2, cp::2] = np.asarray(
+            bank, np.float32)[:, :, :32, :64].transpose(0, 2, 3, 1)
+    a1, got_sums = stem_l1_plain(torch.from_numpy(x), torch.from_numpy(k1))
+    _assert_bf16_close(a1.float().numpy(), want)
+    # sums of the stored bf16 values: the same values in another order
+    np.testing.assert_allclose(got_sums.numpy(), np.asarray(sums),
+                               rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("h", [64, 96])
+@pytest.mark.parametrize("uint8", [True, False])
+def test_stem_matches_fused_stem_forward(rng, stem_models, h, uint8):
+    """H=96 is the height the TPU kernels over-allocate for (not a
+    multiple of 64); uint8 takes the /255-folded path."""
+    v, tm = stem_models
+    x = _frames(rng, (2, h, 128, 3), uint8)
+    p, s = v["params"]["net"], v["batch_stats"]["net"]
+    want = jax_stem(jnp.asarray(x), p["DyConvModule_0"], s["DyConvModule_0"],
+                    p["DyConvModule_1"], s["DyConvModule_1"], 30.0,
+                    interpret=True)
+    got = fused_stem_forward(torch.from_numpy(x), tm.layers[0], tm.layers[1],
+                             30.0)
+    assert got.dtype == torch.bfloat16 and got.shape == (2, h // 2, 64, 64)
+    _assert_bf16_close(got.float().numpy(), want)
+
+
+def test_stem_matches_flax_dyconv_pair(rng, stem_models):
+    """Against the two flax DyConv layers in f32: the stem's bf16 rounding
+    is the whole difference (tolerance of tests/test_pallas_stem_split.py)."""
+    v, tm = stem_models
+    x = _frames(rng, (2, 64, 128, 3), uint8=False)
+    p, s = v["params"]["net"], v["batch_stats"]["net"]
+    y = JaxDyConv(32, 3, 1, 1).apply(
+        {"params": p["DyConvModule_0"], "batch_stats": s["DyConvModule_0"]},
+        jnp.asarray(x), 30.0, False)
+    want = np.asarray(JaxDyConv(64, 3, 2, 1).apply(
+        {"params": p["DyConvModule_1"], "batch_stats": s["DyConvModule_1"]},
+        y, 30.0, False))
+    got = fused_stem_forward(torch.from_numpy(x), tm.layers[0], tm.layers[1],
+                             30.0).float().numpy()
+    np.testing.assert_allclose(got, want, rtol=0.1, atol=0.03)
+    assert np.corrcoef(got.ravel(), want.ravel())[0, 1] > 0.999
+
+
+def test_mix_and_fold_matches_jax(rng, stem_models):
+    """f32 on both sides; the 4-term expert sum may associate differently."""
+    v, tm = stem_models
+    p, s = v["params"]["net"], v["batch_stats"]["net"]
+    attn = rng.dirichlet(np.ones(4), size=3).astype(np.float32)
+    for i, out_c in ((0, 32), (1, 64)):
+        dp, ds = p[f"DyConvModule_{i}"], s[f"DyConvModule_{i}"]
+        bn_p, bn_s = dp["BatchNorm_0"], ds["BatchNorm_0"]
+        want = jax_mix_and_fold(jnp.asarray(dp["experts"]), jnp.asarray(attn),
+                                bn_p["scale"], bn_p["bias"], bn_s["mean"],
+                                bn_s["var"], out_channels=out_c)
+        got = mix_and_fold(tm.layers[i].weights, torch.from_numpy(attn),
+                           tm.layers[i].bn)
+        np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                                   rtol=1e-5, atol=1e-7)
+
+
+def test_kernel_a_plain_odd_shape_matches_numpy(rng):
+    """Odd sizes, which the TPU kernels do not take: zero padding on the
+    input only, against a float64 numpy conv of the same bf16 operands."""
+    x = rng.uniform(size=(2, 9, 13, 3)).astype(np.float32)
+    k1 = (rng.normal(size=(2, 32, 28)) * 0.3).astype(np.float32)
+    a1, sums = stem_l1_plain(torch.from_numpy(x), torch.from_numpy(k1))
+    xq = torch.from_numpy(x).to(torch.bfloat16).double().numpy()
+    kq = torch.from_numpy(k1).to(torch.bfloat16).double().numpy()
+    xp = np.pad(xq, ((0, 0), (1, 1), (1, 1), (0, 0)))
+    patches = np.stack([xp[:, ki:ki + 9, kj:kj + 13, c]
+                        for ki in range(3) for kj in range(3)
+                        for c in range(3)], axis=-1)      # (2, 9, 13, 27)
+    acc = np.einsum("bhwt,bot->bhwo", patches, kq[..., :27]) \
+        + kq[:, None, None, :, 27]
+    want = acc / (1.0 + np.exp(-acc))
+    np.testing.assert_allclose(a1.float().numpy(), want, rtol=RTOL,
+                               atol=ATOL)
+    np.testing.assert_allclose(sums.numpy(),
+                               a1.double().sum(dim=(1, 2)).numpy(),
+                               rtol=1e-6)
+
+
+def test_stem_kernels_reject_other_devices():
+    """The dispatch rule: CPU -> plain version, CUDA -> kernel, else raise."""
+    x = torch.empty((1, 8, 8, 3), dtype=torch.uint8, device="meta")
+    with pytest.raises(ValueError, match="no stem kernel"):
+        stem_l1(x, torch.empty((1, 32, 28), device="meta"))
+    with pytest.raises(ValueError, match="no stem kernel"):
+        stem_l2(torch.empty((1, 8, 8, 32), dtype=torch.bfloat16,
+                            device="meta"),
+                torch.empty((1, 64, 289), device="meta"))

@@ -1,0 +1,30 @@
+// Shared helpers of the port's CUDA kernels.
+//
+// Every entry point has a plain C interface (loaded with ctypes by
+// uavdet_tpu_torch/kernels.py), launches on the stream it is given,
+// allocates nothing, and returns cudaGetLastError() right after its launch
+// so that a refused launch (too many threads, too much shared memory) is
+// reported instead of silently never running.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#define UAVDET_EXPORT extern "C" __attribute__((visibility("default")))
+
+namespace uavdet {
+
+__device__ __forceinline__ float to_f32(uint8_t v) { return static_cast<float>(v); }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// SiLU in f32, as the TPU kernels compute it before the bf16 store.
+__device__ __forceinline__ float silu(float v) { return v / (1.0f + expf(-v)); }
+
+// Two f32 values rounded to bf16 and packed little-endian (a in the low half).
+__device__ __forceinline__ uint32_t pack_bf16x2(float a, float b) {
+  __nv_bfloat162 p = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<uint32_t*>(&p);
+}
+
+}  // namespace uavdet

@@ -1,0 +1,134 @@
+"""Build, load and launch the port's hand-written CUDA kernels.
+
+The sources in ``csrc/`` are compiled by ``nvcc`` for Hopper (``sm_90a``)
+into one shared library with a plain C interface, loaded with ctypes. The
+library is built at the first launch, never at import, into ``_build/``
+beside this file (git-ignored). Its file name carries a hash of the sources
+and flags, so an edited source is rebuilt and an unchanged one is loaded as
+it is.
+
+Each kernel is a :class:`CudaKernel`; its ``launches`` counts the launches
+that went through it, so a run can show that the main path used the kernel.
+A launch that CUDA refuses raises: there is no fallback.
+"""
+
+import ctypes
+import functools
+import hashlib
+import os
+import subprocess
+import time
+from pathlib import Path
+from typing import NamedTuple
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+class BuildInfo(NamedTuple):
+    path: Path
+    seconds: float     # time spent in nvcc; 0 when the library was cached
+    log: str           # nvcc's output (ptxas resource usage) when built
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME is None:
+        raise RuntimeError("no CUDA toolkit found: set CUDA_HOME or put nvcc "
+                           "on PATH")
+    nvcc = Path(CUDA_HOME) / "bin" / "nvcc"
+    if not nvcc.exists():
+        raise RuntimeError(f"nvcc not found at {nvcc}")
+    return str(nvcc)
+
+
+@functools.cache
+def build() -> BuildInfo:
+    """Compile ``csrc/*.cu`` unless a library of the same hash exists."""
+    sources = sorted(CSRC.glob("*.cu"))
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources + sorted(CSRC.glob("*.cuh")):
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    lib = BUILD_DIR / f"libuavdet_kernels_{digest.hexdigest()[:16]}.so"
+    if lib.exists():
+        return BuildInfo(lib, 0.0, "")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stdout}"
+                           f"{res.stderr}")
+    os.replace(tmp, lib)
+    return BuildInfo(lib, seconds, res.stdout + res.stderr)
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build().path))
+    lib.uavdet_error_string.argtypes = [_I]
+    lib.uavdet_error_string.restype = ctypes.c_char_p
+    lib.uavdet_stem_l1_num_partials.argtypes = [_I, _I]
+    lib.uavdet_stem_l1_num_partials.restype = _I
+    lib.uavdet_nms_max_boxes.argtypes = []
+    lib.uavdet_nms_max_boxes.restype = _I
+    return lib
+
+
+class CudaKernel:
+    """One C entry point of the library, with its launch count."""
+
+    def __init__(self, symbol: str, argtypes):
+        self.symbol = symbol
+        self.argtypes = argtypes
+        self.launches = 0
+
+    @functools.cached_property
+    def _fn(self):
+        fn = getattr(library(), self.symbol)
+        fn.argtypes = self.argtypes
+        fn.restype = _I
+        return fn
+
+    def __call__(self, *args) -> None:
+        err = self._fn(*args)
+        if err != 0:
+            msg = library().uavdet_error_string(err).decode()
+            raise RuntimeError(f"{self.symbol}: CUDA error {err} ({msg})")
+        self.launches += 1
+
+
+# (x, x_is_u8, k1, out, partial, B, H, W, stream)
+STEM_L1 = CudaKernel("uavdet_stem_l1", [_P, _I, _P, _P, _P, _I, _I, _I, _P])
+# (a1, k2, out, B, H, W, stream)
+STEM_L2 = CudaKernel("uavdet_stem_l2", [_P, _P, _P, _I, _I, _I, _P])
+# (boxes, alive, B, N, iou_threshold, stream)
+NMS = CudaKernel("uavdet_nms_alive", [_P, _P, _I, _I, ctypes.c_float, _P])
+
+ALL = {"stem_l1": STEM_L1, "stem_l2": STEM_L2, "nms": NMS}
+
+
+def launch_counts() -> dict:
+    return {name: k.launches for name, k in ALL.items()}
+
+
+def reset_launch_counts() -> None:
+    for k in ALL.values():
+        k.launches = 0
+
+
+def stream_of(t) -> int:
+    """The current CUDA stream of tensor ``t``'s device, as a pointer."""
+    import torch
+    if t.device.index != torch.cuda.current_device():
+        raise ValueError(f"tensor on {t.device}, but the current device is "
+                         f"cuda:{torch.cuda.current_device()}")
+    return torch.cuda.current_stream(t.device).cuda_stream
