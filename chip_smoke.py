@@ -10,19 +10,40 @@ nor PyYAML. The phases, in order:
 
   0. the card: name and power limit (nvidia-smi); TF32 off, so that the
      plain versions' f32 convolutions stay f32;
-  1. builds the CUDA kernels from ``uavdet_tpu_torch/csrc`` (nvcc, sm_90a);
+  1. builds the four CUDA kernels from ``uavdet_tpu_torch/csrc`` (nvcc,
+     sm_90a, one nvcc per source, all at once);
   2. kernel A (stem L1) against its plain version, on uint8 frames
      (16, 640, 640, 3) and on bf16 frames of an odd shape;
   3. kernel B (stem L2) against its plain version at (16, 640, 640, 32);
   4. the NMS kernel against its plain version at (16, 512) boxes with
      duplicates, equal scores, zero-area boxes and -inf padding: bitwise;
-  5. the main path: full-width DyYOLO (conf/model/dy-yolo.yaml widths),
-     bf16, seeded random weights, answers 3 requests of 16 uint8 640x640
-     frames through ``make_detector``; checks the results and that every
-     kernel was launched once per request; then runs the same batch with
-     the plain versions in place of the kernels and compares;
-  6. times, with CUDA events, the median of 20 runs after warm-up: the
-     detector per batch, and each kernel beside its plain version.
+  5. kernel D (dyconv) against its plain version: two odd shapes,
+     (2, 37, 50, 24) -> 40 and (1, 5, 19, 72) -> 136 channels, then the
+     inputs the three SOEM sites of full-width DySOEM_SimFPN get from a
+     batch of 32 1280 px frames: the first 4 images of each with and
+     without ``emit_gap`` and, at the first site, ``fold_out``; then the
+     launch over all 32 images as the main path makes it, held against the
+     plain version 4 images at a time (the plain version's f32 copies
+     bound its batch);
+  6. main path 1: full-width DyYOLO (conf/model/dy-yolo.yaml widths), bf16,
+     seeded random weights, answers 3 requests of 16 uint8 640x640 frames
+     through ``make_detector``; checks the results and the launch counts
+     (stem kernels and NMS once per request, dyconv never); then runs the
+     same batch with the plain versions in place of the kernels and
+     compares;
+  7. main path 2: full-width DySOEM_SimFPN (conf/model/dy-soem_fpn.yaml),
+     bf16, seeded random weights, answers 3 requests of 32 uint8 1280x1280
+     frames through ``make_detector``; checks the results and the launch
+     counts (dyconv three times and NMS once per request, the stem kernels
+     never); then runs the first 8 frames with the plain versions in place
+     of the kernels and compares;
+  8. times, with CUDA events, medians after warm-up: both detectors per
+     batch, and each kernel at its main-path shapes beside its plain
+     version and beside one bf16 ``F.conv2d(groups=B)`` call that computes
+     the same function (``library_ms``; the port never calls it), with the
+     least time the card could take (``bound_ms``: bytes over 3.35 TB/s or
+     operations over the peak rate of their type, whichever is larger);
+  9. a ``torch.profiler`` window of each detector: device time by kernel.
 
 Any failed phase makes it exit with 1 and print no result. Otherwise the
 last three lines are one JSON object of the kernels, the card's name and
@@ -37,13 +58,31 @@ import time
 import traceback
 
 BATCH, SIZE, REQUESTS = 16, 640, 3
+SOEM_BATCH, SOEM_SIZE = 32, 1280     # DySOEM_SimFPN's serving shape
+SOEM_CHECK_BATCH = 4                 # images per call of kernel D's plain version
+SOEM_PLAIN_FRAMES = 8                # frames of main path 2 run through the plain versions
 ITERS, WARMUP = 20, 3
+SOEM_ITERS, SOEM_WARMUP = 5, 2       # the DySOEM detector and kernel D per site
+PLAIN_ITERS, PLAIN_WARMUP = 2, 1     # kernel D's f32 plain version at batch 32
 SEED = 0
 NMS_N = 512
+# published peaks of one H100 SXM: bytes/s of device memory, dense bf16 on the
+# tensor cores, f32 outside them
+HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
 # bf16 output of an f32 sum: the kernels and their plain versions add the
 # same bf16 products in another order, which can move a result across a
 # bf16 rounding boundary (one ulp, 2^-8 relative), rarely further
 RTOL, ATOL = 1.6e-2, 1e-2
+# detections of the kernel path against the plain path: one flipped bf16 ulp
+# in a kernel's output is followed by bf16 roundings in every later layer, so
+# the heads' logits differ by a few hundredths (printed per head). A logit
+# error d moves a score s = sigmoid(logit) by s (1 - s) d, so the limit on a
+# score difference is LOGIT_TOL * s (1 - s) at the plain path's top score
+# (0.5 where that is higher): about 2.7e-3 for DyYOLO's 0.028 and 2.4e-2 for
+# DySOEM_SimFPN's 0.4 to 0.5. Runs on an H100 measured differences that
+# correspond to 0.03 to 0.045 in the logit on both models; a wrong tap,
+# channel order or suppression moves logits by whole units.
+LOGIT_TOL = 0.1
 
 KERNELS = {
     "stem_l1": ("uavdet_tpu_torch/csrc/stem_l1.cu",
@@ -51,13 +90,21 @@ KERNELS = {
     "stem_l2": ("uavdet_tpu_torch/csrc/stem_l2.cu",
                 "uavdet_tpu/ops/pallas_stem_split.py:256"),
     "nms": ("uavdet_tpu_torch/csrc/nms.cu", "uavdet_tpu/ops/pallas_nms.py:28"),
+    "dyconv": ("uavdet_tpu_torch/csrc/dyconv.cu",
+               "uavdet_tpu/ops/pallas_dyconv.py:54"),
+}
+# launches per request on each main path
+EXPECTED_LAUNCHES = {
+    "DyYOLO": {"stem_l1": 1, "stem_l2": 1, "nms": 1, "dyconv": 0},
+    "DySOEM_SimFPN": {"stem_l1": 0, "stem_l2": 0, "nms": 1, "dyconv": 3},
 }
 
 
 class Smoke:
     def __init__(self):
         self.failures = []
-        self.stats = {name: {} for name in KERNELS}
+        self.stats = {name: {"launches": 0, "launches_by_path": {}}
+                      for name in KERNELS}
 
     def check(self, name: str, ok: bool, detail: str) -> None:
         print(f"{'PASS' if ok else 'FAIL'} {name}: {detail}", flush=True)
@@ -99,6 +146,79 @@ def cuda_ms(fn, iters: int = ITERS, warmup: int = WARMUP) -> float:
     return statistics.median(times)
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes: float, n_ops: float, ops_per_s: float) -> dict:
+    """The least time the card could take: every input byte read once and
+    every output byte written once at the memory rate, or the operations at
+    their peak rate, whichever is larger."""
+    by_bytes, by_ops = n_bytes / HBM_BPS * 1e3, n_ops / ops_per_s * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bytes": int(n_bytes), "operations": int(n_ops)}
+
+
+def count_launches(smoke, kernels, path: str, requests: int) -> None:
+    """Reads the launch counts of one main path's run and holds them against
+    what that path launches per request."""
+    counts = kernels.launch_counts()
+    want = {k: n * requests for k, n in EXPECTED_LAUNCHES[path].items()}
+    for name, n in counts.items():
+        smoke.stats[name]["launches"] += n
+        smoke.stats[name]["launches_by_path"][path] = n
+    smoke.check(f"launches {path}", counts == want,
+                f"{counts} for {requests} requests, expected {want}")
+
+
+def check_requests(smoke, results, batch: int) -> None:
+    import torch
+    for i, d in enumerate(results):
+        shapes = (tuple(d.boxes.shape), tuple(d.scores.shape),
+                  tuple(d.valid.shape))
+        finite = bool(torch.isfinite(d.boxes).all()
+                      and torch.isfinite(d.scores).all())
+        zero = bool((d.boxes[~d.valid] == 0).all()
+                    and (d.scores[~d.valid] == 0).all())
+        n_valid = d.valid.sum(1)
+        smoke.check(f"request {i}", shapes == ((batch, 300, 4), (batch, 300),
+                                               (batch, 300))
+                    and finite and zero and bool((n_valid > 0).all()),
+                    f"shapes {shapes} finite {finite} invalid-zero "
+                    f"{zero} valid per image {n_valid.tolist()}")
+
+
+def compare_heads(smoke, outs_k, outs_p) -> None:
+    import torch
+    for h, (ok_, op_) in enumerate(zip(outs_k, outs_p)):
+        for field in ("obj", "bbox"):
+            g = getattr(ok_, field).float()
+            w = getattr(op_, field).float()
+            corr = float(torch.corrcoef(torch.stack(
+                [g.flatten(), w.flatten()]))[0, 1])
+            err = float((g - w).abs().max())
+            smoke.check(f"head {h} {field}", corr > 0.999,
+                        f"max_abs_err {err:.4g} corr {corr:.6f}")
+
+
+def compare_detections(smoke, d, plain) -> None:
+    import torch
+    nk, np_ = d.valid.sum(1), plain.valid.sum(1)
+    m = int(torch.minimum(nk, np_).min())
+    score_err = float((d.scores[:, :m] - plain.scores[:, :m]).abs().max())
+    count_gap = int((nk - np_).abs().max())
+    top = float(plain.scores.max())
+    s = min(top, 0.5)
+    limit = LOGIT_TOL * s * (1.0 - s)
+    smoke.check("detections vs plain path",
+                score_err < limit and count_gap <= 0.05 * int(np_.max()),
+                f"valid {nk.tolist()} vs {np_.tolist()}; max |score "
+                f"diff| over the first {m} {score_err:.3g} (limit "
+                f"{limit:.3g}: {LOGIT_TOL} in the logit at the top score "
+                f"{top:.3g})")
+
+
 def compare_bf16(smoke, name, got, want):
     """-> max abs error; checks the stated bf16 tolerance."""
     import torch
@@ -130,6 +250,46 @@ def nms_case(gen, device):
     return boxes, scores
 
 
+def grouped_operands(x_nhwc, weight_oihw):
+    """The operands of one grouped bf16 ``F.conv2d`` (groups = batch) that
+    computes a per-sample conv, made once, outside the timed call: x as
+    (1, B*C, H, W) and the (B*O, C, 3, 3) weight, both channels_last."""
+    import torch
+    b, h, w, c = x_nhwc.shape
+    x = x_nhwc.to(torch.bfloat16).permute(0, 3, 1, 2).reshape(1, b * c, h, w)
+    return (x.contiguous(memory_format=torch.channels_last),
+            weight_oihw.to(torch.bfloat16).contiguous(
+                memory_format=torch.channels_last))
+
+
+def library_stem(x_nhwc, k_aug, stride: int):
+    """Kernel A's or B's function as one library call: K (B, O, 9C + 1) with
+    taps ki-major, kj, channel and the bias as the last column."""
+    import torch
+    import torch.nn.functional as F
+    b, _, _, c = x_nhwc.shape
+    o = k_aug.shape[1]
+    weight = k_aug[..., :-1].reshape(b, o, 3, 3, c).permute(0, 1, 4, 2, 3)
+    x, wq = grouped_operands(x_nhwc, weight.reshape(b * o, c, 3, 3))
+    bias = k_aug[..., -1].reshape(b * o).to(torch.bfloat16)
+    return lambda: F.silu(F.conv2d(x, wq, bias, stride=stride, padding=1,
+                                   groups=b))
+
+
+def library_dyconv(x, k, mul, add):
+    """Kernel D's function as one library call plus its affine and SiLU."""
+    import torch
+    import torch.nn.functional as F
+    b, h, w, c = x.shape
+    co = k.shape[-1]
+    xq, wq = grouped_operands(
+        x, k.permute(0, 3, 2, 1).reshape(b * co, c, 3, 3))
+    m = mul.to(torch.bfloat16)[None, :, None, None]
+    a = add.to(torch.bfloat16)[:, :, None, None]
+    return lambda: F.silu(F.conv2d(xq, wq, padding=1, groups=b).reshape(
+        b, co, h, w) * m + a)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -144,8 +304,11 @@ def main() -> int:
 
     from uavdet_tpu_torch import kernels
     from uavdet_tpu_torch.inference import (decode_topk_global,
-                                            make_detector, select_detections)
-    from uavdet_tpu_torch.models import DYYOLO
+                                            make_detector, preprocess,
+                                            select_detections)
+    from uavdet_tpu_torch.models import DYSOEM, DYYOLO
+    from uavdet_tpu_torch.ops.dyconv import (dyconv, dyconv_plain,
+                                             parity_sums, rfold)
     from uavdet_tpu_torch.ops.nms import (batched_nms, nms_alive,
                                           nms_alive_plain)
     from uavdet_tpu_torch.ops.stem import (detector_stem_fast_path,
@@ -172,11 +335,12 @@ def main() -> int:
     smoke.phase("1 build", build)
 
     t0 = time.perf_counter()
-    model = seeded_model("DyYOLO", DYYOLO, SEED, dev, torch.bfloat16)
+    # device and dtype are the entry point's defaults: the card, bf16
+    model = seeded_model("DyYOLO", DYYOLO, SEED)
     dy0, dy1, temp = model.layers[0], model.layers[1], model.attn_temperature
     n_params = sum(p.numel() for p in model.parameters())
-    print(f"model: DyYOLO full width, {n_params} parameters, bf16, "
-          f"seed {SEED}, built in {time.perf_counter() - t0:.1f} s")
+    print(f"model: DyYOLO full width, {n_params} parameters, seed {SEED}, "
+          f"built in {time.perf_counter() - t0:.1f} s")
     frames = torch.randint(0, 256, (BATCH, SIZE, SIZE, 3), dtype=torch.uint8,
                            device=dev, generator=gen)
     inputs = {}
@@ -195,6 +359,9 @@ def main() -> int:
             f"{float(sums_p.abs().max()):.6g} (rtol 1e-3)")
         inputs["l1"] = (frames, k1)
         inputs["l2"] = (a1, stem_l2_weights(sums, SIZE * SIZE, dy1, temp))
+        smoke.stats["stem_l1"].update(bound(
+            nbytes(frames, a1, sums) + k1.numel() * 2,
+            2 * 27 * 32 * BATCH * SIZE * SIZE, BF16_FLOPS))
         odd = torch.rand((2, 97, 161, 3), generator=gen, device=dev)
         odd = odd.to(torch.bfloat16)
         k1 = stem_l1_weights(odd, dy0, temp)
@@ -215,6 +382,9 @@ def main() -> int:
         err = compare_bf16(smoke, f"stem_l2 {tuple(a1.shape)} -> "
                            f"{tuple(out.shape)}", out, stem_l2_plain(a1, k2))
         smoke.stats["stem_l2"]["max_abs_err"] = err
+        smoke.stats["stem_l2"].update(bound(
+            nbytes(a1, out) + k2.numel() * 2,
+            2 * 288 * 64 * out.numel() // 64, BF16_FLOPS))
 
     @torch.inference_mode()
     def kernel_nms():
@@ -232,10 +402,132 @@ def main() -> int:
         same = all(torch.equal(g, w) for g, w in zip(got, want))
         smoke.check("batched_nms keep_idx/alive/order bitwise", same, "")
         inputs["nms"] = boxes_s
+        # csrc/nms.cu: 5 f32 operations per box area, 14 per IoU of a pair
+        # (i, j > i): 4 min/max, 2 differences, 2 clamps, 1 product, the
+        # union's sum and difference, its clamp, the quotient, the compare
+        b, n = alive.shape
+        smoke.stats["nms"].update(bound(
+            nbytes(boxes_s, alive), b * (5 * n + 14 * n * (n - 1) // 2),
+            F32_FLOPS))
 
     smoke.phase("2 kernel A", kernel_a)
     smoke.phase("3 kernel B", kernel_b)
     smoke.phase("4 NMS", kernel_nms)
+
+    t0 = time.perf_counter()
+    soem_model = seeded_model("DySOEM_SimFPN", DYSOEM, SEED)
+    n_params = sum(p.numel() for p in soem_model.parameters())
+    print(f"model: DySOEM_SimFPN full width, {n_params} parameters, seed "
+          f"{SEED}, built in {time.perf_counter() - t0:.1f} s")
+    for name, m in (("DyYOLO", model), ("DySOEM_SimFPN", soem_model)):
+        where = {(p.device.type, p.dtype) for p in m.parameters()}
+        smoke.check(f"{name} built with no device or dtype named",
+                    where == {("cuda", torch.bfloat16)}, f"{where}")
+    soem_frames = torch.randint(0, 256, (SOEM_BATCH, SOEM_SIZE, SOEM_SIZE, 3),
+                                dtype=torch.uint8, device=dev, generator=gen)
+    sites = []   # (x, k, mul, add, emit_gap) as each SOEM site calls kernel D
+
+    def sums_close(name, got, want, rtol):
+        # sums of ~10^5 stored values: a bf16 ulp that falls the other way
+        # moves a sum by 2^-8 of one value, so the error is held against the
+        # largest sum, not against each (possibly cancelling) one
+        err = float((got - want).abs().max())
+        top = float(want.abs().max())
+        smoke.check(name, err <= rtol * top, f"max_abs_err {err:.6g} of "
+                    f"{top:.6g} (rtol {rtol} of the largest sum)")
+
+    def check_dyconv(label, x, k, mul, add, fold: bool):
+        want, want_sums = dyconv_plain(x, k, mul, add, emit_gap=True)
+        got = dyconv(x, k, mul, add)
+        err = compare_bf16(smoke, f"dyconv {label} {tuple(x.shape)} -> "
+                           f"{tuple(got.shape)}", got, want)
+        got_g, sums = dyconv(x, k, mul, add, emit_gap=True)
+        smoke.check(f"dyconv {label} emit_gap leaves the output as it is",
+                    torch.equal(got_g, got), "bitwise")
+        sums_close(f"dyconv {label} emit_gap sums vs plain", sums, want_sums,
+                   1e-3)
+        sums_close(f"dyconv {label} emit_gap sums vs its own stored output",
+                   sums, parity_sums(got), 1e-5)
+        if fold:
+            folded = dyconv(x, k, mul, add, fold_out=True)
+            smoke.check(f"dyconv {label} fold_out == rfold(out)",
+                        torch.equal(folded, rfold(got)),
+                        f"bitwise, {tuple(folded.shape)}")
+            compare_bf16(smoke, f"dyconv {label} fold_out vs plain", folded,
+                         dyconv_plain(x, k, mul, add, fold_out=True))
+        return err
+
+    def check_full_batch(label, x, k, mul, add, emit):
+        """The launch the main path makes at this site, all images at once,
+        against the plain version a few images at a time. -> max abs error."""
+        res = dyconv(x, k, mul, add, emit_gap=emit)
+        got, sums = res if emit else (res, None)
+        n, ok, err, sum_err, sum_top = SOEM_CHECK_BATCH, True, 0.0, 0.0, 0.0
+        for s in range(0, x.shape[0], n):
+            want, want_sums = dyconv_plain(x[s:s + n], k[s:s + n], mul,
+                                           add[s:s + n], emit_gap=True)
+            g, w = got[s:s + n].float(), want.float()
+            ok = ok and bool(torch.isfinite(g).all()) and torch.allclose(
+                g, w, rtol=RTOL, atol=ATOL)
+            err = max(err, float((g - w).abs().max()))
+            if emit:
+                sum_err = max(sum_err, float(
+                    (sums[s:s + n] - want_sums).abs().max()))
+                sum_top = max(sum_top, float(want_sums.abs().max()))
+        ok = ok and sum_err <= 1e-3 * sum_top
+        smoke.check(f"dyconv {label} one launch of {x.shape[0]} images, all "
+                    f"held against plain {n} at a time", ok,
+                    f"max_abs_err {err:.6g} (rtol {RTOL}, atol {ATOL})"
+                    + (f"; sums max_abs_err {sum_err:.6g} of {sum_top:.6g} "
+                       "(rtol 1e-3 of the largest sum)" if emit else ""))
+        return err
+
+    @torch.inference_mode()
+    def kernel_d():
+        # odd H and W; C and Co below one chunk and one channel tile, then
+        # several of each with a ragged last one
+        for b, h, w, c, co in ((2, 37, 50, 24, 40), (1, 5, 19, 72, 136)):
+            x = torch.randn((b, h, w, c), generator=gen, device=dev)
+            k = torch.randn((b, 9, c, co), generator=gen, device=dev) \
+                * (2.0 / (9 * c)) ** 0.5
+            mul = 0.5 + torch.rand((co,), generator=gen, device=dev)
+            add = 0.3 * torch.randn((b, co), generator=gen, device=dev)
+            check_dyconv("odd", x.to(torch.bfloat16), k.to(torch.bfloat16),
+                         mul, add, fold=False)
+
+        def recording(x, k, mul, add, emit_gap=False):
+            sites.append((x, k, mul, add, emit_gap))
+            return dyconv(x, k, mul, add, emit_gap=emit_gap)
+
+        soem_model(preprocess(soem_frames, SOEM_SIZE), conv=recording)
+        smoke.check("dyconv sites", len(sites) == 3,
+                    f"{[tuple(s[0].shape) for s in sites]} -> "
+                    f"{[s[1].shape[-1] for s in sites]} channels, emit_gap "
+                    f"{[s[4] for s in sites]}")
+        errs, total = [], {"bytes": 0, "operations": 0, "bound_ms": 0.0}
+        n = SOEM_CHECK_BATCH
+        for i, (x, k, mul, add, emit) in enumerate(sites):
+            errs.append(check_dyconv(f"soem_{i}", x[:n], k[:n], mul, add[:n],
+                                     fold=i == 0))
+            errs.append(check_full_batch(f"soem_{i}", x, k, mul, add, emit))
+            bb, hh, ww, cc = x.shape
+            oc = k.shape[-1]
+            site = bound(nbytes(x, k, mul, add) + bb * hh * ww * oc * 2,
+                         2 * 9 * cc * oc * bb * hh * ww, BF16_FLOPS)
+            print(f"  soem_{i} bound {site}")
+            for key in total:
+                total[key] += site[key]
+            inputs[f"dyconv_{i}"] = site
+        smoke.stats["dyconv"]["max_abs_err"] = max(errs)
+        # the three sites of one request: their bounds add up, and the sum
+        # is bound by what bounds the larger part of it
+        by = {"bytes": 0.0, "operations": 0.0}
+        for i in range(len(sites)):
+            site = inputs[f"dyconv_{i}"]
+            by[site["bound_by"]] += site["bound_ms"]
+        smoke.stats["dyconv"].update(total, bound_by=max(by, key=by.get))
+
+    smoke.phase("5 kernel D", kernel_d)
 
     detect = make_detector(model, DYYOLO, SIZE)
     anchors = DYYOLO.anchors
@@ -249,25 +541,8 @@ def main() -> int:
         kernels.reset_launch_counts()
         results = [detect(r) for r in requests]
         torch.cuda.synchronize()
-        counts = kernels.launch_counts()
-        for name, n in counts.items():
-            smoke.stats[name]["launches"] = n
-        smoke.check("launches", all(n == REQUESTS for n in counts.values()),
-                    f"{counts} for {REQUESTS} requests")
-        for i, d in enumerate(results):
-            shapes = (tuple(d.boxes.shape), tuple(d.scores.shape),
-                      tuple(d.valid.shape))
-            finite = bool(torch.isfinite(d.boxes).all()
-                          and torch.isfinite(d.scores).all())
-            zero = bool((d.boxes[~d.valid] == 0).all()
-                        and (d.scores[~d.valid] == 0).all())
-            n_valid = d.valid.sum(1)
-            smoke.check(f"request {i}", shapes == ((BATCH, 300, 4),
-                                                   (BATCH, 300),
-                                                   (BATCH, 300))
-                        and finite and zero and bool((n_valid > 0).all()),
-                        f"shapes {shapes} finite {finite} invalid-zero "
-                        f"{zero} valid per image {n_valid.tolist()}")
+        count_launches(smoke, kernels, "DyYOLO", REQUESTS)
+        check_requests(smoke, results, BATCH)
 
         # the same batch, with the plain versions in place of the kernels
         x = requests[0]
@@ -277,76 +552,130 @@ def main() -> int:
                                  l2=stem_l2_plain)
         compare_bf16(smoke, f"stem output {tuple(a_p.shape)}", a_k, a_p)
         outs_k, outs_p = fast.tail(a_k), fast.tail(a_p)
-        for h, (ok_, op_) in enumerate(zip(outs_k, outs_p)):
-            for field in ("obj", "bbox"):
-                g = getattr(ok_, field).float()
-                w = getattr(op_, field).float()
-                corr = float(torch.corrcoef(torch.stack(
-                    [g.flatten(), w.flatten()]))[0, 1])
-                err = float((g - w).abs().max())
-                smoke.check(f"head {h} {field}", corr > 0.999,
-                            f"max_abs_err {err:.4g} corr {corr:.6f}")
+        compare_heads(smoke, outs_k, outs_p)
         scales = [SIZE // o.obj.shape[2] for o in outs_p]
         boxes, scores = decode_topk_global(outs_p, anchors, scales, 512)
         plain = select_detections(boxes, scores, 0.001, 0.5, 300,
                                   alive_fn=nms_alive_plain)
-        d = results[0]
-        nk, np_ = d.valid.sum(1), plain.valid.sum(1)
-        m = int(torch.minimum(nk, np_).min())
-        score_err = float((d.scores[:, :m] - plain.scores[:, :m]).abs().max())
-        count_gap = int((nk - np_).abs().max())
-        smoke.check("detections vs plain path",
-                    score_err < 1e-3 and count_gap <= 0.05 * int(np_.max()),
-                    f"valid {nk.tolist()} vs {np_.tolist()}; max |score "
-                    f"diff| over the first {m} {score_err:.3g}")
+        compare_detections(smoke, results[0], plain)
 
-    smoke.phase("5 main path", main_path)
+    smoke.phase("6 main path 1: DyYOLO", main_path)
+
+    soem_detect = make_detector(soem_model, DYSOEM, SOEM_SIZE)
+
+    @torch.inference_mode()
+    def main_path_soem():
+        shape = (SOEM_BATCH, SOEM_SIZE, SOEM_SIZE, 3)
+        requests = [torch.randint(0, 256, shape, dtype=torch.uint8,
+                                  device=dev, generator=gen)
+                    for _ in range(REQUESTS)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        results = [soem_detect(r) for r in requests]
+        torch.cuda.synchronize()
+        count_launches(smoke, kernels, "DySOEM_SimFPN", REQUESTS)
+        print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+              f" GiB {tag}")
+        check_requests(smoke, results, SOEM_BATCH)
+
+        # the first frames of the first batch, with the plain versions in
+        # place of the kernels (the f32 copies of the plain dyconv bound
+        # how many frames fit)
+        n = SOEM_PLAIN_FRAMES
+        x = preprocess(requests[0][:n], SOEM_SIZE)
+        outs_k = soem_model(x)
+        outs_p = soem_model(x, conv=dyconv_plain)
+        print(f"plain versions on the first {n} of {SOEM_BATCH} frames")
+        compare_heads(smoke, outs_k, outs_p)
+        scales = [SOEM_SIZE // o.obj.shape[2] for o in outs_p]
+        plain = select_detections(
+            *decode_topk_global(outs_p, DYSOEM.anchors, scales, 512), 0.001,
+            0.5, 300, alive_fn=nms_alive_plain)
+        compare_detections(smoke, soem_detect(requests[0][:n]), plain)
+
+    smoke.phase("7 main path 2: DySOEM_SimFPN", main_path_soem)
+
+    def time_pair(name, kern, plain, lib, iters=ITERS, warmup=WARMUP,
+                  plain_iters=ITERS, plain_warmup=WARMUP):
+        """Kernel and plain version in turns, so that neither side owns the
+        card's warm state; then the library call."""
+        k1 = cuda_ms(kern, iters, warmup)
+        p1 = cuda_ms(plain, plain_iters, plain_warmup)
+        k2 = cuda_ms(kern, iters, warmup)
+        p2 = cuda_ms(plain, plain_iters, plain_warmup)
+        lib_ms = None if lib is None else cuda_ms(lib, iters, warmup)
+        print(f"{name}: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / "
+              f"{p2:.4f} ms, library "
+              f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'} {tag}")
+        return {"ms": min(k1, k2), "plain_ms": min(p1, p2),
+                "library_ms": lib_ms}
 
     @torch.inference_mode()
     def timing():
         ms = cuda_ms(lambda: detect(frames))
         print(f"detector DyYOLO @{SIZE} bs={BATCH} uint8 -> Detections: "
               f"{ms:.3f} ms/batch, {BATCH * 1000.0 / ms:.1f} fps {tag}")
-        pairs = {
-            "stem_l1": (stem_l1, stem_l1_plain, inputs.get("l1")),
-            "stem_l2": (stem_l2, stem_l2_plain, inputs.get("l2")),
-            "nms": (nms_alive, nms_alive_plain,
-                    (inputs["nms"], 0.5) if "nms" in inputs else None),
-        }
-        for name, (kern, plain, args) in pairs.items():
-            if args is None:
-                continue
-            # alternate, so that neither side owns the card's warm state
-            k1 = cuda_ms(lambda: kern(*args))
-            p1 = cuda_ms(lambda: plain(*args))
-            k2 = cuda_ms(lambda: kern(*args))
-            p2 = cuda_ms(lambda: plain(*args))
-            smoke.stats[name]["ms"] = min(k1, k2)
-            smoke.stats[name]["plain_ms"] = min(p1, p2)
-            print(f"{name}: kernel {k1:.4f} / {k2:.4f} ms, plain "
-                  f"{p1:.4f} / {p2:.4f} ms {tag}")
+        ms = cuda_ms(lambda: soem_detect(soem_frames), SOEM_ITERS,
+                     SOEM_WARMUP)
+        print(f"detector DySOEM_SimFPN @{SOEM_SIZE} bs={SOEM_BATCH} uint8 -> "
+              f"Detections: {ms:.3f} ms/batch, "
+              f"{SOEM_BATCH * 1000.0 / ms:.1f} fps (median of {SOEM_ITERS}) "
+              f"{tag}")
+        x, k1 = inputs["l1"]
+        smoke.stats["stem_l1"].update(time_pair(
+            "stem_l1", lambda: stem_l1(x, k1), lambda: stem_l1_plain(x, k1),
+            library_stem(x, k1, 1)))
+        a1, k2 = inputs["l2"]
+        smoke.stats["stem_l2"].update(time_pair(
+            "stem_l2", lambda: stem_l2(a1, k2), lambda: stem_l2_plain(a1, k2),
+            library_stem(a1, k2, 2)))
+        boxes_s = inputs["nms"]
+        smoke.stats["nms"].update(time_pair(
+            "nms", lambda: nms_alive(boxes_s, 0.5),
+            lambda: nms_alive_plain(boxes_s, 0.5), None))
+        total = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
+        per_site = []
+        for i, (x, k, mul, add, emit) in enumerate(sites):
+            t = time_pair(
+                f"dyconv soem_{i} {tuple(x.shape)} -> {k.shape[-1]} "
+                f"emit_gap={emit}",
+                lambda: dyconv(x, k, mul, add, emit_gap=emit),
+                lambda: dyconv_plain(x, k, mul, add, emit_gap=emit),
+                library_dyconv(x, k, mul, add), SOEM_ITERS, SOEM_WARMUP,
+                PLAIN_ITERS, PLAIN_WARMUP)
+            if emit:
+                t["ms_without_emit_gap"] = cuda_ms(
+                    lambda: dyconv(x, k, mul, add), SOEM_ITERS, SOEM_WARMUP)
+                print(f"  without emit_gap {t['ms_without_emit_gap']:.4f} ms")
+            t.update(inputs[f"dyconv_{i}"], site=f"soem_{i}")
+            per_site.append(t)
+            for key in total:
+                total[key] += t[key]
+        # one request's three sites together
+        smoke.stats["dyconv"].update(total, sites=per_site)
 
-    smoke.phase("6 timing", timing)
+    smoke.phase("8 timing", timing)
 
     @torch.inference_mode()
-    def profile():
-        """Device time by kernel over 3 batches, and the device's idle
+    def profile(name, fn, batches):
+        """Device time by kernel over a few batches, and the device's idle
         share."""
+        from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity
         from torch.profiler import profile as torch_profile
-        detect(frames)
+        fn()
         torch.cuda.synchronize()
         with torch_profile(activities=[ProfilerActivity.CPU,
                                        ProfilerActivity.CUDA]) as prof:
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            for _ in range(3):
-                detect(frames)
+            for _ in range(batches):
+                fn()
             end.record()
             end.synchronize()
         wall_us = start.elapsed_time(end) * 1e3
-        from torch.autograd import DeviceType
         # kernels and copies on the card only (operator rows repeat them)
         rows = [(e.self_device_time_total, e.count, e.key)
                 for e in prof.key_averages()
@@ -354,20 +683,22 @@ def main() -> int:
         rows = sorted((r for r in rows if r[0] > 0), reverse=True)
         busy_us = sum(r[0] for r in rows)
         if not rows:
-            print("profile: no device time recorded (not measured)")
+            print(f"profile {name}: no device time recorded (not measured)")
             return
-        print(f"profile: 3 batches, device busy {busy_us / 1e3:.3f} ms of "
-              f"{wall_us / 1e3:.3f} ms, idle share "
+        print(f"profile {name}: {batches} batches, device busy "
+              f"{busy_us / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms, idle share "
               f"{1 - busy_us / wall_us:.3f} {tag}")
         for t, n, key in rows[:20]:
-            print(f"  {t / 3e3:9.4f} ms/batch {n // 3:5d} calls/batch "
-                  f"{key[:90]}")
+            print(f"  {t / batches / 1e3:9.4f} ms/batch {n // batches:5d} "
+                  f"calls/batch {key[:150]}")
 
-    print("== 7 profile (informational)", flush=True)
-    try:
-        profile()
-    except Exception:   # a profiler that cannot trace the card fails nothing
-        traceback.print_exc()
+    print("== 9 profile (informational)", flush=True)
+    for args in (("DyYOLO", lambda: detect(frames), 3),
+                 ("DySOEM_SimFPN", lambda: soem_detect(soem_frames), 2)):
+        try:
+            profile(*args)
+        except Exception:   # a profiler that cannot trace the card fails nothing
+            traceback.print_exc()
 
     if smoke.failures:
         print(f"FAILED: {smoke.failures}", flush=True)

@@ -138,7 +138,8 @@ def test_cpu_detector_launches_no_kernel(rng, models):
     _, _, port = models["stem"]
     make_detector(port, SmallHP, 64, compute_dtype=torch.float32)(
         torch.from_numpy(_frames(rng, 1)))
-    assert kernels.launch_counts() == {"stem_l1": 0, "stem_l2": 0, "nms": 0}
+    assert kernels.launch_counts() == {"stem_l1": 0, "stem_l2": 0, "nms": 0,
+                                       "dyconv": 0}
 
 
 def test_port_imports_no_jax():
@@ -148,6 +149,8 @@ def test_port_imports_no_jax():
             "import uavdet_tpu_torch.inference, uavdet_tpu_torch.kernels\n"
             "import uavdet_tpu_torch.utils.seeding\n"
             "import uavdet_tpu_torch.utils.weights\n"
+            "import uavdet_tpu_torch.ops.dyconv\n"
+            "import uavdet_tpu_torch.models.dysoem_simfpn\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'uavdet_tpu', 'yaml')]\n"
             "assert not bad, bad\n"

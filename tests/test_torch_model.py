@@ -156,8 +156,9 @@ def test_dyyolo_constant_is_the_yaml():
 
 
 def test_build_model():
-    model = build_model("DyYOLO", DYYOLO, dtype=torch.bfloat16)
+    model = build_model("DyYOLO", DYYOLO, dtype=torch.bfloat16, device="cpu")
     assert isinstance(model, DyYOLO) and model.dtype == torch.bfloat16
+    assert {p.device.type for p in model.parameters()} == {"cpu"}
     assert len(model.yolo_head.detection_head) == len(DYYOLO.head_scales)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model("baseline", DYYOLO)

@@ -1,15 +1,19 @@
 """End-to-end inference of the port: frames -> detections.
 
 Port of ``uavdet_tpu/inference.py`` (``preprocess``, ``decode_topk_global``,
-``make_detector``) for a DyYOLO-style model:
+``make_detector``) for a DyYOLO-style model or a DySOEM_SimFPN:
 
-  1. uint8 NHWC frames at the detector's size go straight into the stem's
-     kernel A (/255 is folded into its weights); other frames are resized
-     and normalized by ``preprocess`` first;
-  2. the two-pass dynamic-conv stem (``ops/stem.py``, kernels A and B),
-     then the rest of the model; a model without that stem runs whole;
+  1. DyYOLO: uint8 NHWC frames at the detector's size go straight into the
+     stem's kernel A (/255 is folded into its weights); other frames are
+     resized and normalized by ``preprocess`` first. Any other model: every
+     frame goes through ``preprocess``, which only normalizes (/255) frames
+     that are already at the detector's size;
+  2. DyYOLO: the two-pass dynamic-conv stem (``ops/stem.py``, kernels A and
+     B), then the rest of the model. A model without that stem runs whole;
+     a bf16 DySOEM_SimFPN runs its three SOEMs through kernel D
+     (``ops/dyconv.py``);
   3. one global top-k over the objectness logits of all heads, and the
-     decode of the survivors only;
+     decode of the survivors only; the head strides come from the shapes;
   4. greedy NMS (``ops/nms.py``, the NMS kernel), fixed-shape Detections.
 
 A model whose parameters live on a CUDA device runs the kernels; on the CPU
@@ -136,7 +140,9 @@ def make_detector(model, hparams, input_size: int,
 
     When the model starts with the DyConv(32,3,1), DyConv(64,3,2) stem, it
     runs through the stem kernels (``detector_stem_fast_path``), and uint8
-    frames already at ``input_size`` skip ``preprocess``.
+    frames already at ``input_size`` skip ``preprocess``. For any other
+    model, frames already at ``input_size`` are only normalized: the resize
+    of ``preprocess`` does nothing at the size it is asked for.
     """
     anchors = np.asarray(hparams.anchors, np.float32)
     stem = detector_stem_fast_path(model)

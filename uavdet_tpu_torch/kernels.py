@@ -1,11 +1,11 @@
 """Build, load and launch the port's hand-written CUDA kernels.
 
-The sources in ``csrc/`` are compiled by ``nvcc`` for Hopper (``sm_90a``)
-into one shared library with a plain C interface, loaded with ctypes. The
-library is built at the first launch, never at import, into ``_build/``
-beside this file (git-ignored). Its file name carries a hash of the sources
-and flags, so an edited source is rebuilt and an unchanged one is loaded as
-it is.
+The sources in ``csrc/`` are compiled by ``nvcc`` for Hopper (``sm_90a``),
+one ``nvcc`` per source and all of them at once, and linked into one shared
+library with a plain C interface, loaded with ctypes. The library is built
+at the first launch, never at import, into ``_build/`` beside this file
+(git-ignored). Its file name carries a hash of the sources and flags, so an
+edited source is rebuilt and an unchanged one is loaded as it is.
 
 Each kernel is a :class:`CudaKernel`; its ``launches`` counts the launches
 that went through it, so a run can show that the main path used the kernel.
@@ -24,7 +24,7 @@ from typing import NamedTuple
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -59,16 +59,30 @@ def build() -> BuildInfo:
     if lib.exists():
         return BuildInfo(lib, 0.0, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sources]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stdout}"
-                           f"{res.stderr}")
+    try:
+        procs = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(sources, objs)]
+        logs = [proc.communicate()[0] for proc in procs]
+        for src, proc, log in zip(sources, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src.name} "
+                                   f"({proc.returncode}):\n{log}")
+        res = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                              *map(str, objs)], capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed to link ({res.returncode}):\n"
+                               f"{res.stdout}{res.stderr}")
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     os.replace(tmp, lib)
-    return BuildInfo(lib, seconds, res.stdout + res.stderr)
+    return BuildInfo(lib, time.perf_counter() - t0, "".join(logs))
 
 
 @functools.cache
@@ -80,6 +94,8 @@ def library() -> ctypes.CDLL:
     lib.uavdet_stem_l1_num_partials.restype = _I
     lib.uavdet_nms_max_boxes.argtypes = []
     lib.uavdet_nms_max_boxes.restype = _I
+    lib.uavdet_dyconv_num_partials.argtypes = [_I, _I]
+    lib.uavdet_dyconv_num_partials.restype = _I
     return lib
 
 
@@ -112,8 +128,11 @@ STEM_L1 = CudaKernel("uavdet_stem_l1", [_P, _I, _P, _P, _P, _I, _I, _I, _P])
 STEM_L2 = CudaKernel("uavdet_stem_l2", [_P, _P, _P, _I, _I, _I, _P])
 # (boxes, alive, B, N, iou_threshold, stream)
 NMS = CudaKernel("uavdet_nms_alive", [_P, _P, _I, _I, ctypes.c_float, _P])
+# (x, k, mul, add, out, partial or NULL, B, H, W, C, Co, fold_out, stream)
+DYCONV = CudaKernel("uavdet_dyconv", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                      _I, _I, _P])
 
-ALL = {"stem_l1": STEM_L1, "stem_l2": STEM_L2, "nms": NMS}
+ALL = {"stem_l1": STEM_L1, "stem_l2": STEM_L2, "nms": NMS, "dyconv": DYCONV}
 
 
 def launch_counts() -> dict:

@@ -1,6 +1,7 @@
 """Models of the port."""
 
 from .dy_yolo import DyYOLO
-from .registry import DYYOLO, build_model
+from .dysoem_simfpn import DySOEM_SimFPN
+from .registry import DYSOEM, DYYOLO, build_model
 
-__all__ = ["DYYOLO", "DyYOLO", "build_model"]
+__all__ = ["DYSOEM", "DYYOLO", "DySOEM_SimFPN", "DyYOLO", "build_model"]

@@ -29,6 +29,20 @@ class CNNBlock(nn.Module):
         return F.leaky_relu(self.bn(self.conv(x)), 0.1)
 
 
+class ConvModule(nn.Module):
+    """Conv (no bias) -> BN -> SiLU (``uavdet_tpu/models/layers.py:88``)."""
+
+    def __init__(self, c_in: int, c_out: int, kernel_size: int = 1,
+                 stride: int = 1, padding: int = 0):
+        super().__init__()
+        self.conv = nn.Conv2d(c_in, c_out, kernel_size, stride, padding,
+                              bias=False)
+        self.bn = nn.BatchNorm2d(c_out)
+
+    def forward(self, x):
+        return F.silu(self.bn(self.conv(x)))
+
+
 class ResidualBlock(nn.Module):
     """num_repeats x (1x1 to half the channels -> 3x3 back), with an
     optional skip."""
@@ -114,7 +128,10 @@ class DyConvModule(nn.Module):
 
 
 class YOLOHead(nn.Module):
-    """Per-scale 1x1 objectness and box convs -> (B, A, H, W, C) logits."""
+    """Per-scale 1x1 objectness and box convs -> (B, A, H, W, C) logits.
+
+    ``channels``: the width of each map it is given, in order: DyYOLO's
+    scale-prediction taps, or DySOEM_SimFPN's three neck maps."""
 
     def __init__(self, channels, n_anchors: int = 3):
         super().__init__()

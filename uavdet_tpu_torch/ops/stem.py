@@ -193,10 +193,10 @@ STEM_TOKENS = (("DyConv", 32, 3, 1), ("DyConv", 64, 3, 2))
 
 
 def detector_stem_fast_path(model) -> StemFastPath | None:
-    """The stem kernels + the rest of ``model``, or None when the model's
-    ``layer_config`` does not start with the DyConv(32,3,1), DyConv(64,3,2)
-    stem these kernels implement."""
-    if tuple(model.tokens[:2]) != STEM_TOKENS:
+    """The stem kernels + the rest of ``model``, or None when the model has
+    no ``layer_config`` or it does not start with the DyConv(32,3,1),
+    DyConv(64,3,2) stem these kernels implement."""
+    if tuple(getattr(model, "tokens", ())[:2]) != STEM_TOKENS:
         return None
     dy0, dy1 = model.layers[0], model.layers[1]
     temp = model.attn_temperature

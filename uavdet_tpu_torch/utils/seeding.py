@@ -14,8 +14,9 @@ import math
 import torch
 from torch import nn
 
+from ..models.dysoem_simfpn import Experts
 from ..models.layers import DyConvModule, ResidualBlock
-from ..models.registry import build_model
+from ..models.registry import build_model, serving_dtype
 
 
 @torch.no_grad()
@@ -41,6 +42,12 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
             uniform(m.running_var, 0.8, 1.2)
         elif isinstance(m, DyConvModule):
             normal(m.weights, math.sqrt(2.0 / m.weights[0, 0].numel()))
+        elif isinstance(m, Experts):   # HWIO: fan-in is all but the last axis
+            normal(m.kernel, math.sqrt(2.0 / m.kernel[..., 0].numel()))
+            m.bias.zero_()
+        elif isinstance(m, nn.Linear):
+            normal(m.weight, math.sqrt(2.0 / m.weight.shape[1]))
+            m.bias.zero_()
     # residual branches end in a small BN scale, so 8 repeats of He-normal
     # branches do not multiply the activations' scale (by ~35x each stage)
     for m in model.modules():
@@ -56,15 +63,20 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
     return model
 
 
-def seeded_model(name: str, hparams, seed: int, device,
-                 dtype: torch.dtype = torch.float32) -> nn.Module:
-    """``build_model`` with seeded weights, in eval mode, on ``device``.
+def seeded_model(name: str, hparams, seed: int, device="cuda",
+                 dtype: torch.dtype | None = None) -> nn.Module:
+    """``build_model`` with seeded weights, in eval mode, on ``device``: the
+    card unless the caller names another (without a card the default raises
+    PyTorch's own error). ``dtype`` None is ``serving_dtype`` of the device:
+    bf16 on the card, float32 elsewhere.
 
     On a CUDA device the model is channels_last, the layout cuDNN prefers
-    and the one the stem kernels' NHWC output already has.
+    and the one the kernels' NHWC outputs already have.
     """
-    model = init_weights(build_model(name, hparams), seed).eval()
-    model.to(device=device, dtype=dtype)
+    model = init_weights(build_model(name, hparams, device="cpu"),
+                         seed).eval()
+    model.to(device=device,
+             dtype=serving_dtype(device) if dtype is None else dtype)
     if torch.device(device).type == "cuda":
         for m in model.modules():   # the 5-D expert tensors keep their layout
             if isinstance(m, nn.Conv2d):

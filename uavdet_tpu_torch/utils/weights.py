@@ -10,6 +10,15 @@ the ``layer_config`` tokens in the order the reference builds its
   DyConv experts (k, k, I, E*O), e-major -> (E, O, I, k, k)
   BatchNorm scale/bias + mean/var        -> weight/bias + running_mean/var
 
+``dysoem_state_dict_from_flax`` does the same for a DySOEM_SimFPN tree, onto
+the names of ``models/dysoem_simfpn.py`` (there is no reference checkpoint
+map for that model yet):
+
+  Dense kernel (I, O) + bias             -> nn.Linear weight (O, I) + bias
+  SOEM experts kernel (3, 3, 4C, E*Co) and bias (E*Co,), expert-major
+                                         -> kept as they are, one tensor each
+  HWIO conv kernels of stem, neck, head  -> OIHW
+
 Arrays stay numpy; nothing here imports JAX.
 """
 
@@ -27,6 +36,25 @@ def _dense_as_conv(w):
     return np.ascontiguousarray(np.transpose(np.asarray(w))[:, :, None, None])
 
 
+def _bn(sd, prefix, p, s):
+    sd[f"{prefix}.weight"] = np.asarray(p["scale"])
+    sd[f"{prefix}.bias"] = np.asarray(p["bias"])
+    sd[f"{prefix}.running_mean"] = np.asarray(s["mean"])
+    sd[f"{prefix}.running_var"] = np.asarray(s["var"])
+    sd[f"{prefix}.num_batches_tracked"] = np.zeros((), np.int64)
+
+
+def _head(sd, head):
+    h = 0
+    while f"obj_{h}" in head:
+        pre = f"yolo_head.detection_head.{h}"
+        for kind in ("obj", "bbox"):
+            conv = head[f"{kind}_{h}"]["Conv_0"]
+            sd[f"{pre}.{kind}.conv_{kind}.weight"] = _conv_w(conv["kernel"])
+            sd[f"{pre}.{kind}.conv_{kind}.bias"] = np.asarray(conv["bias"])
+        h += 1
+
+
 def state_dict_from_flax(variables, layer_config) -> Dict[str, np.ndarray]:
     """Flax ``{"params": {"net": ...}, "batch_stats": {"net": ...}}`` of a
     DyYOLO/BaselineModel -> the reference state_dict, as numpy arrays."""
@@ -40,18 +68,11 @@ def state_dict_from_flax(variables, layer_config) -> Dict[str, np.ndarray]:
         counters[cls] = n + 1
         return f"{cls}_{n}"
 
-    def bn(prefix, p, s):
-        sd[f"{prefix}.weight"] = np.asarray(p["scale"])
-        sd[f"{prefix}.bias"] = np.asarray(p["bias"])
-        sd[f"{prefix}.running_mean"] = np.asarray(s["mean"])
-        sd[f"{prefix}.running_var"] = np.asarray(s["var"])
-        sd[f"{prefix}.num_batches_tracked"] = np.zeros((), np.int64)
-
     def cnnblock(prefix, p, s):
         sd[f"{prefix}.conv.weight"] = _conv_w(p["Conv_0"]["kernel"])
         if "bias" in p["Conv_0"]:
             sd[f"{prefix}.conv.bias"] = np.asarray(p["Conv_0"]["bias"])
-        bn(f"{prefix}.bn", p["BatchNorm_0"], s["BatchNorm_0"])
+        _bn(sd, f"{prefix}.bn", p["BatchNorm_0"], s["BatchNorm_0"])
 
     def resblock(ref_i, name, num_repeats):
         for r in range(num_repeats):
@@ -89,27 +110,57 @@ def state_dict_from_flax(variables, layer_config) -> Dict[str, np.ndarray]:
             w = np.asarray(p["experts"]).reshape(kh, kw, i, e, eo // e)
             sd[f"{pre}.weights"] = np.ascontiguousarray(
                 np.transpose(w, (3, 4, 2, 0, 1)))
-            bn(f"{pre}.bn", p["BatchNorm_0"], s["BatchNorm_0"])
+            _bn(sd, f"{pre}.bn", p["BatchNorm_0"], s["BatchNorm_0"])
             ref_i += 1
         else:
             cb = next_name("CNNBlock")
             cnnblock(f"layers.{ref_i}", params[cb], stats[cb])
             ref_i += 1
 
-    head = params["yolo_head"]
-    h = 0
-    while f"obj_{h}" in head:
-        pre = f"yolo_head.detection_head.{h}"
-        for kind in ("obj", "bbox"):
-            conv = head[f"{kind}_{h}"]["Conv_0"]
-            sd[f"{pre}.{kind}.conv_{kind}.weight"] = _conv_w(conv["kernel"])
-            sd[f"{pre}.{kind}.conv_{kind}.bias"] = np.asarray(conv["bias"])
-        h += 1
+    _head(sd, params["yolo_head"])
+    return sd
+
+
+def dysoem_state_dict_from_flax(variables) -> Dict[str, np.ndarray]:
+    """Flax ``{"params": ..., "batch_stats": ...}`` of a DySOEM_SimFPN -> the
+    state_dict of the port's ``DySOEM_SimFPN``, as numpy arrays."""
+    params, stats = variables["params"], variables["batch_stats"]
+    sd: Dict[str, np.ndarray] = {}
+
+    def conv_module(prefix, p, s):
+        sd[f"{prefix}.conv.weight"] = _conv_w(p["Conv_0"]["kernel"])
+        _bn(sd, f"{prefix}.bn", p["BatchNorm_0"], s["BatchNorm_0"])
+
+    conv_module("input_stem", params["input_stem"]["ConvModule_0"],
+                stats["input_stem"]["ConvModule_0"])
+    i = 0
+    while f"soem_{i}" in params:
+        p, pre = params[f"soem_{i}"], f"soem_{i}"
+        for fc in ("attn_fc1", "attn_fc2"):
+            sd[f"{pre}.{fc}.weight"] = np.ascontiguousarray(
+                np.transpose(np.asarray(p[fc]["kernel"])))
+            sd[f"{pre}.{fc}.bias"] = np.asarray(p[fc]["bias"])
+        sd[f"{pre}.experts.kernel"] = np.asarray(p["experts"]["kernel"])
+        sd[f"{pre}.experts.bias"] = np.asarray(p["experts"]["bias"])
+        _bn(sd, f"{pre}.bn", p["BatchNorm_0"],
+            stats[f"soem_{i}"]["BatchNorm_0"])
+        i += 1
+    for name, p in params["neck"].items():
+        if "Conv_0" in p:
+            conv_module(f"neck.{name}", p, stats["neck"][name])
+        else:
+            sd[f"neck.{name}.weight"] = _conv_w(p["kernel"])
+            sd[f"neck.{name}.bias"] = np.asarray(p["bias"])
+    _head(sd, params["yolo_head"])
     return sd
 
 
 def load_flax_variables(model: torch.nn.Module, variables) -> None:
-    """Load a flax variables tree into the port's model (strict)."""
-    sd = state_dict_from_flax(variables, model.tokens)
+    """Load a flax variables tree into the port's model (strict): a
+    DyYOLO-style interpreter, or a DySOEM_SimFPN."""
+    if hasattr(model, "tokens"):
+        sd = state_dict_from_flax(variables, model.tokens)
+    else:
+        sd = dysoem_state_dict_from_flax(variables)
     model.load_state_dict({k: torch.from_numpy(np.array(v))
                            for k, v in sd.items()}, strict=True)
