@@ -10,7 +10,7 @@ nor PyYAML. The phases, in order:
 
   0. the card: name and power limit (nvidia-smi); TF32 off, so that the
      plain versions' f32 convolutions stay f32;
-  1. builds the four CUDA kernels from ``uavdet_tpu_torch/csrc`` (nvcc,
+  1. builds the seven CUDA kernels from ``uavdet_tpu_torch/csrc`` (nvcc,
      sm_90a, one nvcc per source, all at once);
   2. kernel A (stem L1) against its plain version, on uint8 frames
      (16, 640, 640, 3) and on bf16 frames of an odd shape;
@@ -25,6 +25,19 @@ nor PyYAML. The phases, in order:
      launch over all 32 images as the main path makes it, held against the
      plain version 4 images at a time (the plain version's f32 copies
      bound its batch);
+  5e. kernel E (the fused stem) against its plain version and against
+     kernel B of kernel A's output, on the uint8 frames (16, 640, 640, 3)
+     and on bf16 frames of an odd shape, with the share of elements that
+     are bitwise equal; then its path, the public op, 3 calls;
+  5f. kernel F (kernel B's stage ladder): the ``full`` stage bitwise equal
+     to kernel B's output; then its path, the ladder's command-line entry
+     ``uavdet_tpu_torch.scripts.l2_ablate``, which prints every stage's
+     time;
+  5g. kernel G (the fused post-stem block) against its plain version at
+     (16, 320, 320, 64) with the weights folded from the full-width DyYOLO,
+     at an odd shape, and on a small input with large biases, where every
+     output depends on the zero padding of the two inner activations; then
+     its path, ``uavdet_tpu_torch.scripts.block_ablate``;
   6. main path 1: full-width DyYOLO (conf/model/dy-yolo.yaml widths), bf16,
      seeded random weights, answers 3 requests of 16 uint8 640x640 frames
      through ``make_detector``; checks the results and the launch counts
@@ -37,13 +50,26 @@ nor PyYAML. The phases, in order:
      counts (dyconv three times and NMS once per request, the stem kernels
      never); then runs the first 8 frames with the plain versions in place
      of the kernels and compares;
-  8. times, with CUDA events, medians after warm-up: both detectors per
+  7b. main path 3: full-width BaselineModel (conf/model/baseline.yaml),
+     bf16, seeded random weights, answers 3 requests of 1 uint8 640x640
+     frame (NMS once per request, no other kernel); compared with the plain
+     path;
+  7c. main path 4: the dual-stream detector on full-width DyYOLO: 3
+     requests of 8 RGB (1080x1920) + 8 infrared (512x640) uint8 frames
+     through ``make_detector(..., dual=True)`` (stem kernels and NMS once
+     per request); compared with the plain path;
+  8. times, with CUDA events, medians after warm-up: the four detectors per
      batch, and each kernel at its main-path shapes beside its plain
      version and beside one bf16 ``F.conv2d(groups=B)`` call that computes
-     the same function (``library_ms``; the port never calls it), with the
+     the same function (``library_ms``; the port never calls it; for kernel
+     E two such calls, for kernel G three shared-weight bf16 convs with
+     their leaky and add), with the
      least time the card could take (``bound_ms``: bytes over 3.35 TB/s or
      operations over the peak rate of their type, whichever is larger);
   9. a ``torch.profiler`` window of each detector: device time by kernel.
+
+No detector path may launch kernel E, F or G: their paths are the op and
+the two command-line entries, as in the JAX package.
 
 Any failed phase makes it exit with 1 and print no result. Otherwise the
 last three lines are one JSON object of the kernels, the card's name and
@@ -51,13 +77,13 @@ power limit, and ``{"ok": true, "device": {...}}``.
 """
 
 import json
-import statistics
-import subprocess
 import sys
 import time
 import traceback
 
 BATCH, SIZE, REQUESTS = 16, 640, 3
+DUAL_BATCH, RGB_HW, IR_HW = 8, (1080, 1920), (512, 640)   # per modality
+LADDER_ITERS = 10                    # timed launches per stage of a ladder
 SOEM_BATCH, SOEM_SIZE = 32, 1280     # DySOEM_SimFPN's serving shape
 SOEM_CHECK_BATCH = 4                 # images per call of kernel D's plain version
 SOEM_PLAIN_FRAMES = 8                # frames of main path 2 run through the plain versions
@@ -92,11 +118,24 @@ KERNELS = {
     "nms": ("uavdet_tpu_torch/csrc/nms.cu", "uavdet_tpu/ops/pallas_nms.py:28"),
     "dyconv": ("uavdet_tpu_torch/csrc/dyconv.cu",
                "uavdet_tpu/ops/pallas_dyconv.py:54"),
+    "stem_fused": ("uavdet_tpu_torch/csrc/stem_fused.cu",
+                   "uavdet_tpu/ops/pallas_stem.py:37"),
+    "stem_l2_stage": ("uavdet_tpu_torch/csrc/stem_l2.cu",
+                      "scripts/l2_ablate.py:27"),
+    "post_stem_block": ("uavdet_tpu_torch/csrc/post_stem_block.cu",
+                        "scripts/block_ablate.py:44"),
 }
-# launches per request on each main path
+# launches per request on each main path; a kernel not named is launched 0
+# times there
 EXPECTED_LAUNCHES = {
-    "DyYOLO": {"stem_l1": 1, "stem_l2": 1, "nms": 1, "dyconv": 0},
-    "DySOEM_SimFPN": {"stem_l1": 0, "stem_l2": 0, "nms": 1, "dyconv": 3},
+    "DyYOLO": {"stem_l1": 1, "stem_l2": 1, "nms": 1},
+    "DySOEM_SimFPN": {"nms": 1, "dyconv": 3},
+    "baseline": {"nms": 1},
+    "DyYOLO dual": {"stem_l1": 1, "stem_l2": 1, "nms": 1},
+    "stem_fused op": {"stem_fused": 1},
+    # one run of a ladder's entry point: every stage, warm-up included
+    "l2_ablate": {"stem_l2_stage": 5 * (LADDER_ITERS + 3)},
+    "block_ablate": {"post_stem_block": 4 * (LADDER_ITERS + 3)},
 }
 
 
@@ -121,29 +160,10 @@ class Smoke:
             return None
 
 
-def card_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True, timeout=60).stdout
-    return out.strip().splitlines()[0]
-
-
 def cuda_ms(fn, iters: int = ITERS, warmup: int = WARMUP) -> float:
     """Median device time of one call, by CUDA events, after warm-up."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(iters):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    from uavdet_tpu_torch.utils.timing import cuda_ms as timed
+    return timed(fn, iters, warmup)
 
 
 def nbytes(*tensors) -> int:
@@ -164,7 +184,7 @@ def count_launches(smoke, kernels, path: str, requests: int) -> None:
     """Reads the launch counts of one main path's run and holds them against
     what that path launches per request."""
     counts = kernels.launch_counts()
-    want = {k: n * requests for k, n in EXPECTED_LAUNCHES[path].items()}
+    want = {k: EXPECTED_LAUNCHES[path].get(k, 0) * requests for k in counts}
     for name, n in counts.items():
         smoke.stats[name]["launches"] += n
         smoke.stats[name]["launches_by_path"][path] = n
@@ -262,18 +282,64 @@ def grouped_operands(x_nhwc, weight_oihw):
                 memory_format=torch.channels_last))
 
 
-def library_stem(x_nhwc, k_aug, stride: int):
-    """Kernel A's or B's function as one library call: K (B, O, 9C + 1) with
-    taps ki-major, kj, channel and the bias as the last column."""
+def stem_weights(k_aug):
+    """K (B, O, 9C + 1), taps ki-major, kj, channel and the bias as the last
+    column -> the grouped conv's bf16 weight (B*O, C, 3, 3), channels_last,
+    and bias (B*O,)."""
     import torch
-    import torch.nn.functional as F
-    b, _, _, c = x_nhwc.shape
-    o = k_aug.shape[1]
+    b, o, n = k_aug.shape
+    c = (n - 1) // 9
     weight = k_aug[..., :-1].reshape(b, o, 3, 3, c).permute(0, 1, 4, 2, 3)
-    x, wq = grouped_operands(x_nhwc, weight.reshape(b * o, c, 3, 3))
-    bias = k_aug[..., -1].reshape(b * o).to(torch.bfloat16)
+    return (weight.reshape(b * o, c, 3, 3).to(torch.bfloat16).contiguous(
+        memory_format=torch.channels_last),
+        k_aug[..., -1].reshape(b * o).to(torch.bfloat16))
+
+
+def library_stem(x_nhwc, k_aug, stride: int):
+    """Kernel A's or B's function as one library call."""
+    import torch.nn.functional as F
+    b = x_nhwc.shape[0]
+    wq, bias = stem_weights(k_aug)
+    x, _ = grouped_operands(x_nhwc, wq)
     return lambda: F.silu(F.conv2d(x, wq, bias, stride=stride, padding=1,
                                    groups=b))
+
+
+def library_stem_fused(x_nhwc, k1, k2):
+    """Kernel E's function as two library calls, the second on the first's
+    output as it lies: one (1, 32 B, H, W) bf16 map."""
+    import torch.nn.functional as F
+    b = x_nhwc.shape[0]
+    (w1, b1), (w2, b2) = stem_weights(k1), stem_weights(k2)
+    x, _ = grouped_operands(x_nhwc, w1)
+    return lambda: F.silu(F.conv2d(
+        F.silu(F.conv2d(x, w1, b1, padding=1, groups=b)), w2, b2, stride=2,
+        padding=1, groups=b))
+
+
+def library_block(x_nhwc, w1, k2, k3):
+    """Kernel G's function as three shared-weight bf16 channels_last convs
+    with their leaky and the residual add."""
+    import torch
+    import torch.nn.functional as F
+
+    def operands(k_aug, ksize):
+        kq = k_aug.to(torch.bfloat16)
+        o = kq.shape[0]
+        weight = kq[:, :-1].reshape(o, ksize, ksize, -1).permute(0, 3, 1, 2)
+        return (weight.contiguous(memory_format=torch.channels_last),
+                kq[:, -1].contiguous())
+
+    x = x_nhwc.permute(0, 3, 1, 2)   # NCHW view of NHWC memory
+    (wa, ba), (wb, bb), (wc, bc) = (operands(w1, 1), operands(k2, 3),
+                                    operands(k3, 3))
+
+    def run():
+        z = F.leaky_relu(F.conv2d(x, wa, ba), 0.1)
+        y = F.leaky_relu(F.conv2d(z, wb, bb, padding=1), 0.1) + x
+        return F.leaky_relu(F.conv2d(y, wc, bc, stride=2, padding=1), 0.1)
+
+    return run
 
 
 def library_dyconv(x, k, mul, add):
@@ -294,6 +360,7 @@ def main() -> int:
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none is visible")
+    from uavdet_tpu_torch.utils.timing import card_line
     card = card_line()
     print(card, flush=True)
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
@@ -305,17 +372,24 @@ def main() -> int:
     from uavdet_tpu_torch import kernels
     from uavdet_tpu_torch.inference import (decode_topk_global,
                                             make_detector, preprocess,
+                                            preprocess_dual,
                                             select_detections)
-    from uavdet_tpu_torch.models import DYSOEM, DYYOLO
+    from uavdet_tpu_torch.models import BASELINE, DYSOEM, DYYOLO
+    from uavdet_tpu_torch.ops.block import (BLOCK_STAGES, fold_block_weights,
+                                            post_stem_block,
+                                            post_stem_block_plain)
     from uavdet_tpu_torch.ops.dyconv import (dyconv, dyconv_plain,
                                              parity_sums, rfold)
     from uavdet_tpu_torch.ops.nms import (batched_nms, nms_alive,
                                           nms_alive_plain)
-    from uavdet_tpu_torch.ops.stem import (detector_stem_fast_path,
-                                           fused_stem_forward, stem_l1,
+    from uavdet_tpu_torch.ops.stem import (L2_STAGES,
+                                           detector_stem_fast_path,
+                                           fused_stem_forward, stem_fused,
+                                           stem_fused_plain, stem_l1,
                                            stem_l1_plain, stem_l1_weights,
                                            stem_l2, stem_l2_plain,
-                                           stem_l2_weights)
+                                           stem_l2_stage, stem_l2_weights)
+    from uavdet_tpu_torch.scripts import block_ablate, l2_ablate
     from uavdet_tpu_torch.utils.seeding import seeded_model
 
     smoke = Smoke()
@@ -529,6 +603,110 @@ def main() -> int:
 
     smoke.phase("5 kernel D", kernel_d)
 
+    def stem_ops(shape):
+        """2 x 27 x 32 per pixel of the first layer + 2 x 288 x 64 per pixel
+        of the second."""
+        b, h, w, _ = shape
+        return 2 * b * (27 * 32 * h * w
+                        + 288 * 64 * ((h + 1) // 2) * ((w + 1) // 2))
+
+    @torch.inference_mode()
+    def kernel_e():
+        x, k1 = inputs["l1"]
+        a1, k2 = inputs["l2"]
+        out = stem_fused(x, k1, k2)
+        err = compare_bf16(smoke, f"stem_fused uint8 {tuple(x.shape)} -> "
+                           f"{tuple(out.shape)} vs plain", out,
+                           stem_fused_plain(x, k1, k2))
+        smoke.stats["stem_fused"]["max_abs_err"] = err
+        compare_bf16(smoke, "stem_fused uint8 vs stem_l2(stem_l1)", out,
+                     stem_l2(a1, k2))
+        smoke.stats["stem_fused"].update(bound(
+            nbytes(x, out) + (k1.numel() + k2.numel()) * 2,
+            stem_ops(x.shape), BF16_FLOPS))
+        odd = torch.rand((2, 97, 161, 3), generator=gen, device=dev)
+        odd = odd.to(torch.bfloat16)
+        k1 = stem_l1_weights(odd, dy0, temp)
+        a1, sums = stem_l1(odd, k1)
+        k2 = stem_l2_weights(sums, 97 * 161, dy1, temp)
+        out = stem_fused(odd, k1, k2)
+        compare_bf16(smoke, "stem_fused bf16 (2,97,161,3) -> (2,49,81,64) "
+                     "vs plain", out, stem_fused_plain(odd, k1, k2))
+        compare_bf16(smoke, "stem_fused bf16 odd vs stem_l2(stem_l1)", out,
+                     stem_l2(a1, k2))
+        # its path: the public op, as a caller that holds K1 and K2 calls it
+        x, k1 = inputs["l1"]
+        k2 = inputs["l2"][1]
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        outs = [stem_fused(x, k1, k2) for _ in range(REQUESTS)]
+        torch.cuda.synchronize()
+        count_launches(smoke, kernels, "stem_fused op", REQUESTS)
+        smoke.check("stem_fused op results", all(
+            o.shape == (BATCH, SIZE // 2, SIZE // 2, 64)
+            and bool(torch.isfinite(o.float()).all()) for o in outs),
+            f"{REQUESTS} x {tuple(outs[0].shape)} finite")
+
+    def run_ladder(name, entry, stages):
+        """A ladder's command-line entry as its path: every stage launched
+        and timed by the script's own ``main``."""
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        rc = entry.main(["--iters", str(LADDER_ITERS)])
+        torch.cuda.synchronize()
+        smoke.check(f"{name} main", rc == 0, f"returned {rc}; stages "
+                    f"{list(stages)}")
+        count_launches(smoke, kernels, name, 1)
+
+    @torch.inference_mode()
+    def kernel_f():
+        a1, k2 = inputs["l2"]
+        full, ref = stem_l2_stage(a1, k2, "full"), stem_l2(a1, k2)
+        smoke.check("stem_l2_stage full == stem_l2, bitwise",
+                    torch.equal(full, ref), f"{tuple(full.shape)}")
+        err = compare_bf16(smoke, "stem_l2_stage full vs plain", full,
+                           stem_l2_plain(a1, k2))
+        smoke.stats["stem_l2_stage"]["max_abs_err"] = err
+        smoke.stats["stem_l2_stage"].update(
+            {k: smoke.stats["stem_l2"][k] for k in
+             ("bound_ms", "bound_by", "bytes", "operations")})
+        run_ladder("l2_ablate", l2_ablate, L2_STAGES)
+
+    def check_block(label, x, w1, k2, k3):
+        got = post_stem_block(x, w1, k2, k3)
+        want = post_stem_block_plain(x, w1, k2, k3)
+        return compare_bf16(smoke, f"post_stem_block {label} "
+                            f"{tuple(x.shape)} -> {tuple(got.shape)}", got,
+                            want)
+
+    @torch.inference_mode()
+    def kernel_g():
+        w1, k2, k3 = fold_block_weights(model)
+        x = stem_l2(*inputs["l2"])        # what the block sees in DyYOLO
+        inputs["block"] = (x, w1, k2, k3)
+        err = check_block("DyYOLO's weights", x, w1, k2, k3)
+        smoke.stats["post_stem_block"]["max_abs_err"] = err
+        b, h, w, _ = x.shape
+        ho, wo = (h + 1) // 2, (w + 1) // 2
+        smoke.stats["post_stem_block"].update(bound(
+            nbytes(x) + b * ho * wo * 128 * 2
+            + (w1.numel() + k2.numel() + k3.numel()) * 2,
+            2 * b * (h * w * (64 * 32 + 288 * 64) + ho * wo * 576 * 128),
+            BF16_FLOPS))
+        odd = torch.randn((2, 37, 45, 64), generator=gen, device=dev)
+        check_block("odd", odd.to(torch.bfloat16), w1, k2, k3)
+        # biases of the size of the activations: with leaky(bias) in place
+        # of zero outside the image, every border output would be off
+        small = torch.randn((3, 16, 24, 64), generator=gen, device=dev)
+        big = [torch.cat([k[:, :-1], torch.full_like(k[:, -1:], v)], dim=1)
+               for k, v in ((w1, 1.0), (k2, -1.5), (k3, 0.5))]
+        check_block("border, large biases", small.to(torch.bfloat16), *big)
+        run_ladder("block_ablate", block_ablate, BLOCK_STAGES)
+
+    smoke.phase("5e kernel E", kernel_e)
+    smoke.phase("5f kernel F", kernel_f)
+    smoke.phase("5g kernel G", kernel_g)
+
     detect = make_detector(model, DYYOLO, SIZE)
     anchors = DYYOLO.anchors
 
@@ -543,9 +721,11 @@ def main() -> int:
         torch.cuda.synchronize()
         count_launches(smoke, kernels, "DyYOLO", REQUESTS)
         check_requests(smoke, results, BATCH)
+        compare_with_plain_stem(requests[0], results[0])
 
-        # the same batch, with the plain versions in place of the kernels
-        x = requests[0]
+    def compare_with_plain_stem(x, result):
+        """DyYOLO on the frames x (raw uint8 at the detector's size, or
+        preprocessed), with the plain versions in place of the kernels."""
         fast = detector_stem_fast_path(model)
         a_k = fast.stem(x)
         a_p = fused_stem_forward(x, dy0, dy1, temp, l1=stem_l1_plain,
@@ -557,7 +737,7 @@ def main() -> int:
         boxes, scores = decode_topk_global(outs_p, anchors, scales, 512)
         plain = select_detections(boxes, scores, 0.001, 0.5, 300,
                                   alive_fn=nms_alive_plain)
-        compare_detections(smoke, results[0], plain)
+        compare_detections(smoke, result, plain)
 
     smoke.phase("6 main path 1: DyYOLO", main_path)
 
@@ -596,6 +776,59 @@ def main() -> int:
 
     smoke.phase("7 main path 2: DySOEM_SimFPN", main_path_soem)
 
+    t0 = time.perf_counter()
+    base_model = seeded_model("baseline", BASELINE, SEED)
+    n_params = sum(p.numel() for p in base_model.parameters())
+    print(f"model: BaselineModel full width, {n_params} parameters, seed "
+          f"{SEED}, built in {time.perf_counter() - t0:.1f} s")
+    base_detect = make_detector(base_model, BASELINE, SIZE)
+    dual_detect = make_detector(model, DYYOLO, SIZE, dual=True)
+
+    def uint8_frames(batch, hw):
+        return torch.randint(0, 256, (batch, *hw, 3), dtype=torch.uint8,
+                             device=dev, generator=gen)
+
+    @torch.inference_mode()
+    def main_path_baseline():
+        requests = [uint8_frames(1, (SIZE, SIZE)) for _ in range(REQUESTS)]
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        results = [base_detect(r) for r in requests]
+        torch.cuda.synchronize()
+        count_launches(smoke, kernels, "baseline", REQUESTS)
+        check_requests(smoke, results, 1)
+        # the plain path: the same eager model, the plain NMS
+        outs = base_model(preprocess(requests[0], SIZE))
+        scales = [SIZE // o.obj.shape[2] for o in outs]
+        plain = select_detections(
+            *decode_topk_global(outs, BASELINE.anchors, scales, 512), 0.001,
+            0.5, 300, alive_fn=nms_alive_plain)
+        compare_detections(smoke, results[0], plain)
+
+    @torch.inference_mode()
+    def main_path_dual():
+        requests = [(uint8_frames(DUAL_BATCH, RGB_HW),
+                     uint8_frames(DUAL_BATCH, IR_HW))
+                    for _ in range(REQUESTS)]
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        results = [dual_detect(rgb, ir) for rgb, ir in requests]
+        torch.cuda.synchronize()
+        count_launches(smoke, kernels, "DyYOLO dual", REQUESTS)
+        check_requests(smoke, results, 2 * DUAL_BATCH)
+        x = preprocess_dual(*requests[0], SIZE)
+        smoke.check("preprocess_dual",
+                    x.shape == (2 * DUAL_BATCH, SIZE, SIZE, 3)
+                    and x.dtype == torch.bfloat16
+                    and 0.0 <= float(x.min()) and float(x.max()) <= 1.0,
+                    f"{tuple(x.shape)} {x.dtype} in [{float(x.min()):.3f}, "
+                    f"{float(x.max()):.3f}]")
+        inputs["dual"] = requests[0]
+        compare_with_plain_stem(x, results[0])
+
+    smoke.phase("7b main path 3: BaselineModel", main_path_baseline)
+    smoke.phase("7c main path 4: DyYOLO dual-stream", main_path_dual)
+
     def time_pair(name, kern, plain, lib, iters=ITERS, warmup=WARMUP,
                   plain_iters=ITERS, plain_warmup=WARMUP):
         """Kernel and plain version in turns, so that neither side owns the
@@ -622,6 +855,15 @@ def main() -> int:
               f"Detections: {ms:.3f} ms/batch, "
               f"{SOEM_BATCH * 1000.0 / ms:.1f} fps (median of {SOEM_ITERS}) "
               f"{tag}")
+        frame = frames[:1]
+        ms = cuda_ms(lambda: base_detect(frame))
+        print(f"detector BaselineModel @{SIZE} bs=1 uint8 -> Detections: "
+              f"{ms:.3f} ms/batch, {1000.0 / ms:.1f} fps {tag}")
+        rgb, ir = inputs["dual"]
+        ms = cuda_ms(lambda: dual_detect(rgb, ir))
+        print(f"detector DyYOLO dual @{SIZE} {DUAL_BATCH} RGB {RGB_HW} + "
+              f"{DUAL_BATCH} IR {IR_HW} uint8 -> Detections: {ms:.3f} "
+              f"ms/batch, {2 * DUAL_BATCH * 1000.0 / ms:.1f} fps {tag}")
         x, k1 = inputs["l1"]
         smoke.stats["stem_l1"].update(time_pair(
             "stem_l1", lambda: stem_l1(x, k1), lambda: stem_l1_plain(x, k1),
@@ -630,6 +872,27 @@ def main() -> int:
         smoke.stats["stem_l2"].update(time_pair(
             "stem_l2", lambda: stem_l2(a1, k2), lambda: stem_l2_plain(a1, k2),
             library_stem(a1, k2, 2)))
+        smoke.stats["stem_fused"].update(time_pair(
+            "stem_fused", lambda: stem_fused(x, k1, k2),
+            lambda: stem_fused_plain(x, k1, k2),
+            library_stem_fused(x, k1, k2)))
+        ab = smoke.stats["stem_l1"]["ms"] + smoke.stats["stem_l2"]["ms"]
+        smoke.stats["stem_fused"]["stem_l1_plus_stem_l2_ms"] = ab
+        print(f"  beside kernel A + kernel B: {ab:.4f} ms")
+        smoke.stats["stem_l2_stage"].update(time_pair(
+            "stem_l2_stage full", lambda: stem_l2_stage(a1, k2, "full"),
+            lambda: stem_l2_plain(a1, k2), library_stem(a1, k2, 2)))
+        xb, w1, kk2, kk3 = inputs["block"]
+        smoke.stats["post_stem_block"].update(time_pair(
+            "post_stem_block", lambda: post_stem_block(xb, w1, kk2, kk3),
+            lambda: post_stem_block_plain(xb, w1, kk2, kk3),
+            library_block(xb, w1, kk2, kk3)))
+        res, down = model.layers[2], model.layers[3]
+        xn = xb.permute(0, 3, 1, 2)
+        eager = cuda_ms(lambda: down(res(xn)))
+        smoke.stats["post_stem_block"]["eager_tail_ms"] = eager
+        print(f"  the same two layers of the eager tail (convs, BatchNorm, "
+              f"leaky, add as separate passes): {eager:.4f} ms")
         boxes_s = inputs["nms"]
         smoke.stats["nms"].update(time_pair(
             "nms", lambda: nms_alive(boxes_s, 0.5),
@@ -694,7 +957,9 @@ def main() -> int:
 
     print("== 9 profile (informational)", flush=True)
     for args in (("DyYOLO", lambda: detect(frames), 3),
-                 ("DySOEM_SimFPN", lambda: soem_detect(soem_frames), 2)):
+                 ("DySOEM_SimFPN", lambda: soem_detect(soem_frames), 2),
+                 ("BaselineModel bs=1", lambda: base_detect(frames[:1]), 3),
+                 ("DyYOLO dual", lambda: dual_detect(*inputs["dual"]), 3)):
         try:
             profile(*args)
         except Exception:   # a profiler that cannot trace the card fails nothing

@@ -138,8 +138,9 @@ def test_cpu_detector_launches_no_kernel(rng, models):
     _, _, port = models["stem"]
     make_detector(port, SmallHP, 64, compute_dtype=torch.float32)(
         torch.from_numpy(_frames(rng, 1)))
-    assert kernels.launch_counts() == {"stem_l1": 0, "stem_l2": 0, "nms": 0,
-                                       "dyconv": 0}
+    assert kernels.launch_counts() == dict.fromkeys(
+        ("stem_l1", "stem_l2", "nms", "dyconv", "stem_fused",
+         "stem_l2_stage", "post_stem_block"), 0)
 
 
 def test_port_imports_no_jax():
@@ -151,6 +152,11 @@ def test_port_imports_no_jax():
             "import uavdet_tpu_torch.utils.weights\n"
             "import uavdet_tpu_torch.ops.dyconv\n"
             "import uavdet_tpu_torch.models.dysoem_simfpn\n"
+            "import uavdet_tpu_torch.models.baseline\n"
+            "import uavdet_tpu_torch.ops.block\n"
+            "import uavdet_tpu_torch.utils.timing\n"
+            "import uavdet_tpu_torch.scripts.l2_ablate\n"
+            "import uavdet_tpu_torch.scripts.block_ablate\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'uavdet_tpu', 'yaml')]\n"
             "assert not bad, bad\n"

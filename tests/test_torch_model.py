@@ -17,7 +17,8 @@ import jax.numpy as jnp
 from tests.test_torch_import import TorchDyYOLO
 from uavdet_tpu.models import DyYOLO as JaxDyYOLO
 from uavdet_tpu.utils.torch_import import import_interpreter_state_dict
-from uavdet_tpu_torch.models import DYYOLO, DyYOLO, build_model
+from uavdet_tpu_torch.models import (BASELINE, DYYOLO, BaselineModel, DyYOLO,
+                                     build_model)
 from uavdet_tpu_torch.utils.seeding import init_weights
 from uavdet_tpu_torch.utils.weights import (load_flax_variables,
                                             state_dict_from_flax)
@@ -160,7 +161,8 @@ def test_build_model():
     assert isinstance(model, DyYOLO) and model.dtype == torch.bfloat16
     assert {p.device.type for p in model.parameters()} == {"cpu"}
     assert len(model.yolo_head.detection_head) == len(DYYOLO.head_scales)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model("baseline", DYYOLO)
+    baseline = build_model("baseline", BASELINE, device="cpu")
+    assert isinstance(baseline, BaselineModel)
+    assert not hasattr(baseline.layers[0], "attention")
     with pytest.raises(ValueError):
         build_model("nope", DYYOLO)

@@ -1,0 +1,118 @@
+"""The port's fused stem op (uavdet_tpu_torch/ops/stem.py:stem_fused, kernel
+E) against the JAX package's ``pallas_dyconv_stem`` in interpret mode, and
+the dispatch rule of kernel B's stage ladder.
+
+On the CPU ``stem_fused`` runs its plain version, kernel B's plain version
+of kernel A's. Both sides round the same operands to bf16, keep the first
+activation in bf16 and accumulate in f32; only the order of the f32 sums
+differs, which moves a result across a bf16 rounding boundary rarely (one
+ulp, 2^-8 relative), and a flipped first-layer value moves a second-layer
+sum a little further. Hence: all elements within rtol 1.6e-2, atol 1e-2, and
+at least 99 % bitwise equal.
+"""
+
+import numpy as np
+import pytest
+import torch
+import jax
+import jax.numpy as jnp
+
+from uavdet_tpu.ops.pallas_stem import mix_and_fold as jax_mix_and_fold
+from uavdet_tpu.ops.pallas_stem import pallas_dyconv_stem
+from uavdet_tpu_torch.ops.stem import (L2_STAGES, stem_fused,
+                                       stem_fused_plain, stem_l1, stem_l2,
+                                       stem_l2_plain, stem_l2_stage)
+
+RTOL, ATOL, MIN_EQUAL = 1.6e-2, 1e-2, 0.99
+
+
+def _case(rng, b, h, w):
+    """The operands of tests/test_pallas_stem.py: frames in [0, 1], expert
+    kernels, softmax attention, perturbed BN -> (x, K1, K2) as numpy."""
+    x = rng.uniform(size=(b, h, w, 3)).astype(np.float32)
+    ks = []
+    for i_ch, o_ch, std in ((3, 32, 0.2), (32, 64, 0.05)):
+        experts = (rng.normal(size=(3, 3, i_ch, 4 * o_ch)) * std).astype(
+            np.float32)
+        attn = jax.nn.softmax(jnp.asarray(
+            rng.normal(size=(b, 4)).astype(np.float32)), -1)
+        bn = [jnp.asarray(v.astype(np.float32)) for v in (
+            rng.uniform(0.5, 1.5, o_ch), rng.normal(size=o_ch) * 0.1,
+            rng.normal(size=o_ch) * 0.1, rng.uniform(0.5, 1.5, o_ch))]
+        ks.append(np.array(jax_mix_and_fold(
+            jnp.asarray(experts), attn, *bn, out_channels=o_ch)))
+    return x, ks[0], ks[1]
+
+
+def _both(x, k1, k2):
+    want = np.asarray(pallas_dyconv_stem(
+        jnp.asarray(x), jnp.asarray(k1), jnp.asarray(k2), tr2=8,
+        interpret=True), np.float32)
+    got = stem_fused_plain(torch.from_numpy(x), torch.from_numpy(k1),
+                           torch.from_numpy(k2))
+    assert got.dtype == torch.bfloat16
+    return got.float().numpy(), want
+
+
+@pytest.mark.parametrize("b,h,w", [(2, 64, 64), (1, 32, 32)])
+def test_stem_fused_plain_matches_pallas_stem(rng, b, h, w):
+    got, want = _both(*_case(rng, b, h, w))
+    assert got.shape == want.shape == (b, h // 2, w // 2, 64)
+    assert (got == want).mean() >= MIN_EQUAL, (got == want).mean()
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+
+
+def test_stem_fused_plain_edges_see_zero_padding(rng):
+    """The first and last output rows and columns read first-layer pixels
+    outside the image, which are 0 for the second layer, not SiLU(bias)."""
+    got, want = _both(*_case(rng, 1, 32, 32))
+    for edge in (np.s_[:, 0], np.s_[:, -1], np.s_[:, :, 0], np.s_[:, :, -1]):
+        np.testing.assert_allclose(got[edge], want[edge], rtol=RTOL,
+                                   atol=ATOL)
+
+
+@pytest.mark.parametrize("uint8", [True, False])
+def test_stem_fused_on_cpu_is_kernel_b_of_kernel_a(rng, uint8):
+    """The dispatch rule: a CPU tensor takes the plain versions, so the op
+    equals the two-pass stem on the same operands, bitwise; odd sizes."""
+    x = (rng.uniform(size=(2, 9, 13, 3)) * 255).astype(np.uint8)
+    x = torch.from_numpy(x if uint8 else x.astype(np.float32) / 255.0)
+    k1 = torch.from_numpy(rng.normal(size=(2, 32, 28)).astype(np.float32))
+    k1 = k1 * (0.3 / 255.0 if uint8 else 0.3)
+    k2 = torch.from_numpy(
+        (rng.normal(size=(2, 64, 289)) * 0.05).astype(np.float32))
+    got = stem_fused(x, k1, k2)
+    assert got.shape == (2, 5, 7, 64) and got.dtype == torch.bfloat16
+    assert torch.equal(got, stem_l2(stem_l1(x, k1)[0], k2))
+    assert torch.isfinite(got.float()).all()
+
+
+def test_stem_fused_rejects_other_devices():
+    x = torch.empty((1, 8, 8, 3), dtype=torch.uint8, device="meta")
+    with pytest.raises(ValueError, match="no stem kernel"):
+        stem_fused(x, torch.empty((1, 32, 28), device="meta"),
+                   torch.empty((1, 64, 289), device="meta"))
+
+
+@pytest.mark.parametrize("stage", L2_STAGES)
+def test_stem_l2_stage_on_cpu(rng, stage):
+    """Only the ladder's last stage is the layer: on the CPU it is kernel
+    B's plain version; a cut-off stage has no plain version and raises."""
+    a1 = torch.from_numpy(rng.normal(size=(1, 8, 10, 32)).astype(
+        np.float32)).to(torch.bfloat16)
+    k2 = torch.from_numpy(
+        (rng.normal(size=(1, 64, 289)) * 0.05).astype(np.float32))
+    if stage == "full":
+        assert torch.equal(stem_l2_stage(a1, k2, stage),
+                           stem_l2_plain(a1, k2))
+    else:
+        with pytest.raises(ValueError, match="only as a CUDA kernel"):
+            stem_l2_stage(a1, k2, stage)
+    with pytest.raises(ValueError, match="no stem kernel"):
+        stem_l2_stage(a1.to("meta"), k2.to("meta"), stage)
+
+
+def test_stem_l2_stage_rejects_unknown_stage():
+    with pytest.raises(ValueError):
+        stem_l2_stage(torch.empty((1, 8, 8, 32), dtype=torch.bfloat16),
+                      torch.empty((1, 64, 289)), "+rolls")

@@ -34,9 +34,11 @@
 // to device memory as 16-byte vectors; for emit_gap the same rounded values are
 // summed in registers, across lanes by shuffles and across warps in shared
 // memory, in one fixed order. wgmma and TMA are the next step, not this version.
-#include "common.cuh"
+#include "mma.cuh"
 
 namespace {
+
+using namespace uavdet;
 
 constexpr int TH = 8;                      // tile rows (pixels)
 constexpr int TW = 16;                     // tile columns: one m16 fragment per tile row
@@ -59,50 +61,6 @@ static_assert(sizeof(__nv_bfloat16) * TH * TW * OUT_STRIDE + sizeof(float) * 2 *
               "the output tile and the parity sums reuse the stages");
 static_assert((TH * TW * OUT_STRIDE * 2) % 16 == 0, "aligned parity sums");
 static_assert((IN_ELEMS * 2) % 16 == 0 && (STAGE_ELEMS * 2) % 16 == 0, "16-byte aligned stages");
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, or 16 zero bytes when !valid (src is then not read).
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
-  const int bytes = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-// d += a (16 x 16, row) * b (16 x 8, col), bf16 operands, f32 sums.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // Stage input channels [c0, c0 + KC) of the tile's window and of the weights of
 // output channels [n0, n0 + NT). Everything outside the image, past C or past

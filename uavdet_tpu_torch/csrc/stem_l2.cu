@@ -22,39 +22,36 @@
 // thread accumulates 4 output pixels x 8 channels in registers: per input
 // value it issues 8 FMAs, and per 4 pixels it reads 8 weights as two float4
 // broadcasts. The staged pixel stride is 72 bytes so that the four pixels a
-// warp reads at once fall in distinct banks. Two blocks fit on one SM.
-#include "common.cuh"
+// warp reads at once fall in distinct banks. Two blocks fit on one SM. The
+// per-tile device code is in stem_l2_tile.cuh, which the fused stem shares.
+//
+// The same source is also the stage ladder of this kernel (it replaces the TPU
+// harness scripts/l2_ablate.py: make_kernel / run_variant): the kernel is a
+// template over the stage it is cut off after, uavdet_stem_l2_stage launches
+// any stage, and uavdet_stem_l2 launches the last one.
+#include "stem_l2_tile.cuh"
 
 namespace {
 
-constexpr int CI = 32;
-constexpr int CO = 64;
-constexpr int KT = 9 * CI;                       // 288 taps
-constexpr int KW = KT + 1;                       // K2 row: taps + bias column
+using namespace uavdet::l2;
+
 constexpr int TR = 8;                            // output tile rows
-constexpr int TC = 16;                           // output tile columns
-constexpr int IR = 2 * TR + 1;                   // staged input rows (with halo)
-constexpr int IC = 2 * TC + 1;                   // staged input columns (with halo)
-constexpr int IN_STRIDE = CI + 4;                // bf16 per staged pixel (72 bytes)
-constexpr int THREADS = 256;
-constexpr int CG = 8;                            // channel groups of 4 + 4 channels
-constexpr int PX = 4;                            // output pixels per thread
-constexpr size_t SMEM_BYTES = sizeof(float) * (KT * CO + CO) +
-                              sizeof(__nv_bfloat16) * IR * IC * IN_STRIDE;
+constexpr int THREADS = Tile<TR>::THREADS;       // 256
+constexpr size_t SMEM_BYTES = W_BYTES + Tile<TR>::IN_BYTES;
 
-static_assert(THREADS == CG * TR * TC / PX, "one thread per 4 pixels x 8 channels");
+// The stage ladder over this kernel: each stage adds one step to the one
+// before it and still stores every output tile, a cheap function of what the
+// last step produced, so that the compiler cannot drop the step. FULL is
+// kernel B.
+enum Stage {
+  STORE = 0,   // write the output tiles only
+  K2 = 1,      // + stage K2[b] in shared memory
+  WINDOW = 2,  // + stage each tile's input window
+  FMA = 3,     // + the tap loop
+  FULL = 4     // + bias, SiLU: kernel B
+};
 
-__device__ __forceinline__ void fma8(float* acc, float x, const float4& lo, const float4& hi) {
-  acc[0] = fmaf(x, lo.x, acc[0]);
-  acc[1] = fmaf(x, lo.y, acc[1]);
-  acc[2] = fmaf(x, lo.z, acc[2]);
-  acc[3] = fmaf(x, lo.w, acc[3]);
-  acc[4] = fmaf(x, hi.x, acc[4]);
-  acc[5] = fmaf(x, hi.y, acc[5]);
-  acc[6] = fmaf(x, hi.z, acc[6]);
-  acc[7] = fmaf(x, hi.w, acc[7]);
-}
-
+template <int STAGE>
 __global__ void __launch_bounds__(THREADS)
 stem_l2_kernel(const __nv_bfloat16* __restrict__ a1, const __nv_bfloat16* __restrict__ k2,
                __nv_bfloat16* __restrict__ out, int H, int W, int Ho, int Wo, int tiles_x,
@@ -67,43 +64,16 @@ stem_l2_kernel(const __nv_bfloat16* __restrict__ a1, const __nv_bfloat16* __rest
   const int b = blockIdx.y;
   const int tid = threadIdx.x;
 
-  const __nv_bfloat16* kb = k2 + static_cast<size_t>(b) * CO * KW;
-  for (int i = tid; i < CO * KW; i += THREADS) {
-    const int o = i / KW;
-    const int k = i % KW;
-    const float v = __bfloat162float(kb[i]);
-    if (k < KT)
-      s_w[k * CO + o] = v;
-    else
-      s_bias[o] = v;
-  }
+  if (STAGE >= K2) stage_k2<THREADS>(k2 + static_cast<size_t>(b) * CO * KW, s_w, s_bias, tid);
 
   const __nv_bfloat16* ab = a1 + static_cast<size_t>(b) * H * W * CI;
-  // this thread: channels 4cg..4cg+3 and 32+4cg..32+4cg+3 of the tile's
-  // pixels (pr + 2j, pc), j = 0..3
-  const int cg = tid % CG;
-  const int pg = tid / CG;
-  const int pr = pg / TC;
-  const int pc = pg % TC;
+  const Lane t(tid);
 
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const int oy0 = (tile / tiles_x) * TR;
     const int ox0 = (tile % tiles_x) * TC;
-    const int iy0 = 2 * oy0 - 1;
-    const int ix0 = 2 * ox0 - 1;
     __syncthreads();  // K2 is staged, and the previous tile is done with s_in
-    for (int i = tid; i < IR * IC * 4; i += THREADS) {
-      const int q = i % 4;
-      const int p = i / 4;
-      const int gy = iy0 + p / IC;
-      const int gx = ix0 + p % IC;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (gy >= 0 && gy < H && gx >= 0 && gx < W)
-        v = reinterpret_cast<const uint4*>(ab + (static_cast<size_t>(gy) * W + gx) * CI)[q];
-      uint2* dst = reinterpret_cast<uint2*>(s_in + p * IN_STRIDE + q * 8);
-      dst[0] = make_uint2(v.x, v.y);
-      dst[1] = make_uint2(v.z, v.w);
-    }
+    if (STAGE >= WINDOW) stage_window<TR>(ab, s_in, H, W, 2 * oy0 - 1, 2 * ox0 - 1, tid);
     __syncthreads();
 
     float acc[PX][8];
@@ -112,56 +82,32 @@ stem_l2_kernel(const __nv_bfloat16* __restrict__ a1, const __nv_bfloat16* __rest
 #pragma unroll
       for (int o = 0; o < 8; ++o) acc[j][o] = 0.0f;
 
-#pragma unroll 1
-    for (int t = 0; t < 9; ++t) {
-      const int ki = t / 3;
-      const int kj = t % 3;
-      const __nv_bfloat16* src[PX];
+    if (STAGE >= FMA) {
+      tile_fma<TR>(s_in, s_w, t, acc);
+    } else if (STAGE == WINDOW) {
+      // the centre tap's first 8 channels of each of the thread's pixels
 #pragma unroll
       for (int j = 0; j < PX; ++j)
-        src[j] = s_in + ((2 * (pr + 2 * j) + ki) * IC + 2 * pc + kj) * IN_STRIDE;
-      const float* wt = s_w + t * CI * CO + cg * 4;
-#pragma unroll 4
-      for (int c = 0; c < CI; c += 2) {
-        const float4 lo0 = *reinterpret_cast<const float4*>(wt + c * CO);
-        const float4 hi0 = *reinterpret_cast<const float4*>(wt + c * CO + 32);
-        const float4 lo1 = *reinterpret_cast<const float4*>(wt + (c + 1) * CO);
-        const float4 hi1 = *reinterpret_cast<const float4*>(wt + (c + 1) * CO + 32);
 #pragma unroll
-        for (int j = 0; j < PX; ++j) {
-          const float2 xv =
-              __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(src[j] + c));
-          fma8(acc[j], xv.x, lo0, hi0);
-          fma8(acc[j], xv.y, lo1, hi1);
+        for (int o = 0; o < 8; ++o)
+          acc[j][o] = __bfloat162float(s_in[((2 * (t.pr + Tile<TR>::ROW_STEP * j) + 1) * IC +
+                                             2 * t.pc + 1) * IN_STRIDE + o]);
+    } else if (STAGE == K2) {
+#pragma unroll
+      for (int j = 0; j < PX; ++j)
+#pragma unroll
+        for (int o = 0; o < 4; ++o) {
+          acc[j][o] = s_w[(t.pr * TC + t.pc + j) * CO + 4 * t.cg + o];
+          acc[j][4 + o] = s_bias[32 + 4 * t.cg + o];
         }
-      }
     }
-
-#pragma unroll
-    for (int j = 0; j < PX; ++j) {
-      const int oy = oy0 + pr + 2 * j;
-      const int ox = ox0 + pc;
-      if (oy >= Ho || ox >= Wo) continue;
-      float v[8];
-#pragma unroll
-      for (int o = 0; o < 4; ++o) {
-        v[o] = uavdet::silu(acc[j][o] + s_bias[4 * cg + o]);
-        v[4 + o] = uavdet::silu(acc[j][4 + o] + s_bias[32 + 4 * cg + o]);
-      }
-      __nv_bfloat16* dst = out + ((static_cast<size_t>(b) * Ho + oy) * Wo + ox) * CO + 4 * cg;
-      *reinterpret_cast<uint2*>(dst) =
-          make_uint2(uavdet::pack_bf16x2(v[0], v[1]), uavdet::pack_bf16x2(v[2], v[3]));
-      *reinterpret_cast<uint2*>(dst + 32) =
-          make_uint2(uavdet::pack_bf16x2(v[4], v[5]), uavdet::pack_bf16x2(v[6], v[7]));
-    }
+    tile_store<TR, STAGE == FULL>(acc, s_bias, t, out, b, Ho, Wo, oy0, ox0);
   }
 }
 
-}  // namespace
-
-// a1: (B, H, W, 32) bf16; k2: (B, 64, 289) bf16; out: (B, ceil(H/2), ceil(W/2), 64) bf16.
-UAVDET_EXPORT int uavdet_stem_l2(const void* a1, const void* k2, void* out, int B, int H, int W,
-                                 void* stream) {
+template <int STAGE>
+cudaError_t launch(const void* a1, const void* k2, void* out, int B, int H, int W,
+                   cudaStream_t stream) {
   const int Ho = (H + 1) / 2;
   const int Wo = (W + 1) / 2;
   const int tiles_x = (Wo + TC - 1) / TC;
@@ -171,15 +117,38 @@ UAVDET_EXPORT int uavdet_stem_l2(const void* a1, const void* k2, void* out, int 
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(stem_l2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    err = cudaFuncSetAttribute(stem_l2_kernel<STAGE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(SMEM_BYTES));
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (err != cudaSuccess) return err;
   // two blocks per SM across the batch; each walks several tiles of one image
   int workers = (2 * sms + B - 1) / B;
   if (workers > n_tiles) workers = n_tiles;
   if (workers < 1) workers = 1;
-  stem_l2_kernel<<<dim3(workers, B), THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+  stem_l2_kernel<STAGE><<<dim3(workers, B), THREADS, SMEM_BYTES, stream>>>(
       static_cast<const __nv_bfloat16*>(a1), static_cast<const __nv_bfloat16*>(k2),
       static_cast<__nv_bfloat16*>(out), H, W, Ho, Wo, tiles_x, n_tiles);
-  return static_cast<int>(cudaGetLastError());
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// a1: (B, H, W, 32) bf16; k2: (B, 64, 289) bf16; out: (B, ceil(H/2), ceil(W/2), 64) bf16.
+UAVDET_EXPORT int uavdet_stem_l2(const void* a1, const void* k2, void* out, int B, int H, int W,
+                                 void* stream) {
+  return static_cast<int>(launch<FULL>(a1, k2, out, B, H, W, static_cast<cudaStream_t>(stream)));
+}
+
+// Kernel B cut off after `stage` (see Stage), same operands as uavdet_stem_l2.
+// Only the last stage's output is the layer's; the others time their steps.
+UAVDET_EXPORT int uavdet_stem_l2_stage(const void* a1, const void* k2, void* out, int B, int H,
+                                       int W, int stage, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (stage) {
+    case STORE: return static_cast<int>(launch<STORE>(a1, k2, out, B, H, W, s));
+    case K2: return static_cast<int>(launch<K2>(a1, k2, out, B, H, W, s));
+    case WINDOW: return static_cast<int>(launch<WINDOW>(a1, k2, out, B, H, W, s));
+    case FMA: return static_cast<int>(launch<FMA>(a1, k2, out, B, H, W, s));
+    case FULL: return static_cast<int>(launch<FULL>(a1, k2, out, B, H, W, s));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -1,7 +1,8 @@
 """End-to-end inference of the port: frames -> detections.
 
-Port of ``uavdet_tpu/inference.py`` (``preprocess``, ``decode_topk_global``,
-``make_detector``) for a DyYOLO-style model or a DySOEM_SimFPN:
+Port of ``uavdet_tpu/inference.py`` (``preprocess``, ``preprocess_dual``,
+``decode_topk_global``, ``make_detector``) for a DyYOLO, a BaselineModel or
+a DySOEM_SimFPN:
 
   1. DyYOLO: uint8 NHWC frames at the detector's size go straight into the
      stem's kernel A (/255 is folded into its weights); other frames are
@@ -15,6 +16,11 @@ Port of ``uavdet_tpu/inference.py`` (``preprocess``, ``decode_topk_global``,
   3. one global top-k over the objectness logits of all heads, and the
      decode of the survivors only; the head strides come from the shapes;
   4. greedy NMS (``ops/nms.py``, the NMS kernel), fixed-shape Detections.
+
+The dual-stream detector (``dual=True``) takes an RGB and an infrared batch
+at their native sizes, brings both to the detector's grid in
+``preprocess_dual`` and detects them as one batch of 2B frames; with DyYOLO
+the preprocessed bf16 frames go through the stem kernels.
 
 A model whose parameters live on a CUDA device runs the kernels; on the CPU
 the same code runs their plain PyTorch versions.
@@ -39,6 +45,16 @@ def preprocess(images: torch.Tensor, input_size: int,
     if images.dtype == torch.uint8:
         x = x / 255.0
     return bilinear_resize(x, input_size, input_size).to(compute_dtype)
+
+
+def preprocess_dual(rgb: torch.Tensor, ir: torch.Tensor, input_size: int,
+                    compute_dtype: torch.dtype = torch.bfloat16
+                    ) -> torch.Tensor:
+    """Both modalities (e.g. RGB 1080x1920 and infrared 512x640 frames)
+    resized to the detector's grid, normalized and stacked modality-major:
+    out[:B] are the RGB frames, out[B:] the infrared ones."""
+    return torch.cat([preprocess(rgb, input_size, compute_dtype),
+                      preprocess(ir, input_size, compute_dtype)], dim=0)
 
 
 @lru_cache(maxsize=16)
@@ -133,10 +149,15 @@ def select_detections(boxes: torch.Tensor, scores: torch.Tensor,
 def make_detector(model, hparams, input_size: int,
                   score_threshold: float = 0.001, nms_iou: float = 0.5,
                   pre_nms_topk: int = 512, max_det: int = 300,
-                  compute_dtype: torch.dtype = torch.bfloat16):
+                  compute_dtype: torch.dtype = torch.bfloat16,
+                  dual: bool = False):
     """``detect(images) -> Detections`` for NHWC frames (B, H, W, 3), uint8
     at any resolution or float in [0, 1]. The weights are ``model``'s own,
     read at every call; frames are moved to the model's device.
+
+    ``dual``: build ``detect(rgb, ir)`` instead. Both batches of B frames,
+    each at its own resolution, go through ``preprocess_dual`` and are
+    detected as one modality-major batch of 2B frames.
 
     When the model starts with the DyConv(32,3,1), DyConv(64,3,2) stem, it
     runs through the stem kernels (``detector_stem_fast_path``), and uint8
@@ -147,13 +168,9 @@ def make_detector(model, hparams, input_size: int,
     anchors = np.asarray(hparams.anchors, np.float32)
     stem = detector_stem_fast_path(model)
 
-    @torch.inference_mode()
-    def detect(images) -> Detections:
-        device = next(model.parameters()).device
-        x = torch.as_tensor(images, device=device)
-        if not (stem is not None and x.dtype == torch.uint8
-                and tuple(x.shape[1:3]) == (input_size, input_size)):
-            x = preprocess(x, input_size, compute_dtype)
+    def body(x) -> Detections:
+        """x: frames at the detector's grid, raw uint8 (stem kernels only)
+        or preprocessed."""
         outs = stem.tail(stem.stem(x)) if stem is not None else model(x)
         scales = [input_size // o.obj.shape[2] for o in outs]
         boxes, scores = decode_topk_global(outs, anchors, scales,
@@ -161,4 +178,20 @@ def make_detector(model, hparams, input_size: int,
         return select_detections(boxes, scores, score_threshold, nms_iou,
                                  max_det)
 
-    return detect
+    @torch.inference_mode()
+    def detect(images) -> Detections:
+        device = next(model.parameters()).device
+        x = torch.as_tensor(images, device=device)
+        if not (stem is not None and x.dtype == torch.uint8
+                and tuple(x.shape[1:3]) == (input_size, input_size)):
+            x = preprocess(x, input_size, compute_dtype)
+        return body(x)
+
+    @torch.inference_mode()
+    def detect_dual(rgb, ir) -> Detections:
+        device = next(model.parameters()).device
+        return body(preprocess_dual(torch.as_tensor(rgb, device=device),
+                                    torch.as_tensor(ir, device=device),
+                                    input_size, compute_dtype))
+
+    return detect_dual if dual else detect

@@ -131,8 +131,19 @@ NMS = CudaKernel("uavdet_nms_alive", [_P, _P, _I, _I, ctypes.c_float, _P])
 # (x, k, mul, add, out, partial or NULL, B, H, W, C, Co, fold_out, stream)
 DYCONV = CudaKernel("uavdet_dyconv", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                       _I, _I, _P])
+# (x, x_is_u8, k1, k2, out, B, H, W, stream)
+STEM_FUSED = CudaKernel("uavdet_stem_fused", [_P, _I, _P, _P, _P, _I, _I, _I,
+                                              _P])
+# (a1, k2, out, B, H, W, stage, stream)
+STEM_L2_STAGE = CudaKernel("uavdet_stem_l2_stage", [_P, _P, _P, _I, _I, _I,
+                                                    _I, _P])
+# (x, w1, k2, k3, b1, b2, b3, out, B, H, W, stage, stream)
+POST_STEM_BLOCK = CudaKernel("uavdet_post_stem_block", [
+    _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P])
 
-ALL = {"stem_l1": STEM_L1, "stem_l2": STEM_L2, "nms": NMS, "dyconv": DYCONV}
+ALL = {"stem_l1": STEM_L1, "stem_l2": STEM_L2, "nms": NMS, "dyconv": DYCONV,
+       "stem_fused": STEM_FUSED, "stem_l2_stage": STEM_L2_STAGE,
+       "post_stem_block": POST_STEM_BLOCK}
 
 
 def launch_counts() -> dict:

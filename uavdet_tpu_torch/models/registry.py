@@ -1,15 +1,17 @@
 """Model dispatch by config name: ``uavdet_tpu/models/registry.py``.
 
-``DYYOLO`` and ``DYSOEM`` hold the hyper-parameters of
-``conf/model/dy-yolo.yaml`` and ``conf/model/dy-soem_fpn.yaml`` that
-inference needs, as Python constants, so that the port runs where PyYAML is
-not installed. A test holds each equal to its YAML file.
+``DYYOLO``, ``BASELINE`` and ``DYSOEM`` hold the hyper-parameters of
+``conf/model/dy-yolo.yaml``, ``conf/model/baseline.yaml`` and
+``conf/model/dy-soem_fpn.yaml`` that inference needs, as Python constants,
+so that the port runs where PyYAML is not installed. A test holds each equal
+to its YAML file.
 """
 
 from types import SimpleNamespace
 
 import torch
 
+from .baseline import BaselineModel
 from .dy_yolo import DyYOLO
 from .dysoem_simfpn import DySOEM_SimFPN
 
@@ -47,6 +49,14 @@ DYYOLO = SimpleNamespace(
     ),
 )
 
+# DYYOLO with plain convs where it has "DyConv" tokens, and no attention
+BASELINE = SimpleNamespace(
+    anchors=DYYOLO.anchors,
+    head_scales=(32, 16, 8),
+    layer_config=tuple(tok[1:] if tok[0] == "DyConv" else tok
+                       for tok in DYYOLO.layer_config),
+)
+
 # anchors smallest first: the x0 (highest-resolution) head comes first. The
 # detector takes the head strides (2, 4, 8) from the shapes, not from
 # ``head_scales``, which the reference's file has wrong.
@@ -60,10 +70,6 @@ DYSOEM = SimpleNamespace(
     dy_kernel_size=(3, 3, 3),
 )
 
-_NOT_PORTED = {
-    "baseline": "queue 1 of ROADMAP.md: preprocess_dual and BaselineModel",
-}
-
 
 def serving_dtype(device) -> torch.dtype:
     """The parameter dtype a model gets when the caller names none: bfloat16
@@ -75,17 +81,21 @@ def serving_dtype(device) -> torch.dtype:
 
 def build_model(name: str, hparams, dtype: torch.dtype | None = None,
                 device="cuda"):
-    """Build the named model from a hyper-parameter node (DyYOLO:
-    ``layer_config``, ``anchors``, ``attn_temperature``; DySOEM_SimFPN:
+    """Build the named model from a hyper-parameter node (baseline:
+    ``layer_config``, ``anchors``; DyYOLO: the same and
+    ``attn_temperature``; DySOEM_SimFPN:
     ``num_dy_conv``, ``dy_kernel_size``, ``anchors``,
     ``attention_temperature``). ``dtype``: the dtype of the parameters,
     which is the compute dtype of the forward; None is ``serving_dtype`` of
     the device (bf16 on the card). ``device``: where the model
     is built; the card unless the caller names another (without a card the
     default raises PyTorch's own error)."""
-    if name in ("DyYOLO", "DySOEM_SimFPN"):
+    if name in ("baseline", "DyYOLO", "DySOEM_SimFPN"):
         with torch.device(device):
-            if name == "DyYOLO":
+            if name == "baseline":
+                model = BaselineModel(hparams.layer_config,
+                                      n_anchors=len(hparams.anchors[0]))
+            elif name == "DyYOLO":
                 model = DyYOLO(
                     hparams.layer_config, n_anchors=len(hparams.anchors[0]),
                     attn_temperature=float(hparams.attn_temperature))
@@ -96,7 +106,4 @@ def build_model(name: str, hparams, dtype: torch.dtype | None = None,
                     attn_temperature=float(hparams.attention_temperature),
                     n_anchors=len(hparams.anchors[0]))
         return model.to(serving_dtype(device) if dtype is None else dtype)
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"model {name!r} is not ported yet ({_NOT_PORTED[name]})")
     raise ValueError(f"Model {name} not supported")

@@ -28,16 +28,23 @@ def resize_weights(n_in: int, n_out: int) -> np.ndarray:
     return out
 
 
+@lru_cache(maxsize=32)
+def _weights_on(device: torch.device, dtype: torch.dtype, n_in: int,
+                n_out: int) -> torch.Tensor:
+    """The resize matrix on ``device``, made once per shape: a copy from the
+    host at every call would make the host wait for the card. Read-only."""
+    return torch.tensor(resize_weights(n_in, n_out), dtype=dtype,
+                        device=device)
+
+
 def bilinear_resize(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     """(B, H, W, C) -> (B, out_h, out_w, C), dtype kept."""
     _, h, w, _ = x.shape
     y = x
     if h != out_h:
-        m = torch.tensor(resize_weights(h, out_h), dtype=x.dtype,
-                         device=x.device)
-        y = torch.einsum("bhwc,hH->bHwc", y, m)
+        y = torch.einsum("bhwc,hH->bHwc", y,
+                         _weights_on(x.device, x.dtype, h, out_h))
     if w != out_w:
-        m = torch.tensor(resize_weights(w, out_w), dtype=x.dtype,
-                         device=x.device)
-        y = torch.einsum("bhwc,wW->bhWc", y, m)
+        y = torch.einsum("bhwc,wW->bhWc", y,
+                         _weights_on(x.device, x.dtype, w, out_w))
     return y

@@ -14,6 +14,14 @@ inference), run as
 The split is forced by the second attention: it pools the whole first
 activation, so K2 cannot exist before kernel A has run over all of it.
 
+``stem_fused`` (port of ``pallas_stem.py:pallas_dyconv_stem``, kernel E,
+``csrc/stem_fused.cu``) runs both layers in one kernel for a caller that
+already holds K1 and K2; the first activation then never reaches device
+memory. No detector can call it, for the reason above: it is a public op.
+``stem_l2_stage`` launches kernel B cut off after one stage of its ladder
+(port of the TPU harness ``scripts/l2_ablate.py``; see
+``uavdet_tpu_torch/scripts/l2_ablate.py``).
+
 Kernel A takes raw uint8 frames: /255 is folded into K1, and the
 attention's pooling is taken on the bytes. Both kernels round their
 operands to bf16, accumulate in f32, apply SiLU in f32 and store bf16, as
@@ -108,6 +116,14 @@ def stem_l2_plain(a1: torch.Tensor, k2: torch.Tensor) -> torch.Tensor:
     return _per_sample_conv(a1, k2, stride=2)
 
 
+def stem_fused_plain(x: torch.Tensor, k1: torch.Tensor,
+                     k2: torch.Tensor) -> torch.Tensor:
+    """Kernel E's plain version: kernel B's of kernel A's. The first
+    activation is rounded to bf16 in between, and the second conv pads it
+    with zeros (not with SiLU(bias))."""
+    return stem_l2_plain(stem_l1_plain(x, k1)[0], k2)
+
+
 def _check_cuda(name, t, shape, dtypes, device):
     if tuple(t.shape) != shape or t.dtype not in dtypes or t.device != device:
         raise ValueError(f"{name}: expected {shape} {dtypes} on {device}, "
@@ -131,7 +147,13 @@ def _stem_l1_cuda(x: torch.Tensor, k1: torch.Tensor):
     return a1, partial.sum(dim=1)
 
 
-def _stem_l2_cuda(a1: torch.Tensor, k2: torch.Tensor) -> torch.Tensor:
+# Kernel B's stage ladder: each stage adds one step to the one before it.
+L2_STAGES = ("store", "+k2", "+window", "+fma", "full")
+
+
+def _stem_l2_cuda(a1: torch.Tensor, k2: torch.Tensor,
+                  stage: int | None = None) -> torch.Tensor:
+    """Kernel B, or with ``stage`` the ladder's kernel cut off after it."""
     b, h, w, _ = a1.shape
     _check_cuda("a1", a1, (b, h, w, 32), (_BF16,), a1.device)
     _check_cuda("k2", k2, (b, 64, 289), (torch.float32, _BF16), a1.device)
@@ -142,8 +164,30 @@ def _stem_l2_cuda(a1: torch.Tensor, k2: torch.Tensor) -> torch.Tensor:
     kq = k2.to(_BF16).contiguous()
     out = torch.empty((b, (h + 1) // 2, (w + 1) // 2, 64), dtype=_BF16,
                       device=a1.device)
-    kernels.STEM_L2(a1.data_ptr(), kq.data_ptr(), out.data_ptr(), b, h, w,
-                    kernels.stream_of(a1))
+    if stage is None:
+        kernels.STEM_L2(a1.data_ptr(), kq.data_ptr(), out.data_ptr(), b, h,
+                        w, kernels.stream_of(a1))
+    else:
+        kernels.STEM_L2_STAGE(a1.data_ptr(), kq.data_ptr(), out.data_ptr(),
+                              b, h, w, stage, kernels.stream_of(a1))
+    return out
+
+
+def _stem_fused_cuda(x: torch.Tensor, k1: torch.Tensor,
+                     k2: torch.Tensor) -> torch.Tensor:
+    b, h, w, _ = x.shape
+    _check_cuda("x", x, (b, h, w, 3), (torch.uint8, torch.float32, _BF16,
+                                       torch.float16), x.device)
+    _check_cuda("k1", k1, (b, 32, 28), (torch.float32, _BF16), x.device)
+    _check_cuda("k2", k2, (b, 64, 289), (torch.float32, _BF16), x.device)
+    xq = (x if x.dtype == torch.uint8 else x.to(_BF16)).contiguous()
+    k1q = k1.to(_BF16).contiguous()
+    k2q = k2.to(_BF16).contiguous()
+    out = torch.empty((b, (h + 1) // 2, (w + 1) // 2, 64), dtype=_BF16,
+                      device=x.device)
+    kernels.STEM_FUSED(xq.data_ptr(), int(xq.dtype == torch.uint8),
+                       k1q.data_ptr(), k2q.data_ptr(), out.data_ptr(), b, h,
+                       w, kernels.stream_of(xq))
     return out
 
 
@@ -163,6 +207,37 @@ def stem_l2(a1: torch.Tensor, k2: torch.Tensor) -> torch.Tensor:
     if a1.device.type == "cpu":
         return stem_l2_plain(a1, k2)
     raise ValueError(f"no stem kernel for device {a1.device}")
+
+
+def stem_l2_stage(a1: torch.Tensor, k2: torch.Tensor,
+                  stage: str) -> torch.Tensor:
+    """Kernel B cut off after ``stage`` of ``L2_STAGES``, same operands and
+    output shape as ``stem_l2``. Only "full" computes the layer (bitwise
+    kernel B's output); a cut-off stage stores a cheap function of its last
+    step and exists to be timed, so it has no plain version: on the CPU it
+    raises."""
+    index = L2_STAGES.index(stage)
+    if a1.is_cuda:
+        return _stem_l2_cuda(a1, k2, stage=index)
+    if a1.device.type == "cpu":
+        if stage != "full":
+            raise ValueError(f"stage {stage!r} of kernel B exists only as a "
+                             "CUDA kernel; on the CPU only 'full' is defined")
+        return stem_l2_plain(a1, k2)
+    raise ValueError(f"no stem kernel for device {a1.device}")
+
+
+def stem_fused(x: torch.Tensor, k1: torch.Tensor,
+               k2: torch.Tensor) -> torch.Tensor:
+    """Kernel E: both stem layers in one kernel. x (B, H, W, 3) uint8 (the
+    caller has folded /255 into K1, as ``stem_l1_weights`` does) or float
+    (rounded to bf16); K1 (B, 32, 28), K2 (B, 64, 289) from ``mix_and_fold``
+    -> (B, ceil(H/2), ceil(W/2), 64) bf16 NHWC."""
+    if x.is_cuda:
+        return _stem_fused_cuda(x, k1, k2)
+    if x.device.type == "cpu":
+        return stem_fused_plain(x, k1, k2)
+    raise ValueError(f"no stem kernel for device {x.device}")
 
 
 @torch.no_grad()   # inference only: the kernels have no backward
