@@ -14,21 +14,26 @@ nor PyYAML. The phases, in order:
      sm_90a, one nvcc per source, all at once);
   2. kernel A (stem L1) against its plain version, on uint8 frames
      (16, 640, 640, 3) and on bf16 frames of an odd shape;
-  3. kernel B (stem L2) against its plain version at (16, 640, 640, 32);
+  3. kernel B (stem L2) against its plain version at (16, 640, 640, 32) and
+     at the shapes of ``ops.stem.L2_EDGE_SHAPES`` (odd H and W, sizes that
+     straddle its 16 x 16 output tile);
   4. the NMS kernel against its plain version at (16, 512) boxes with
      duplicates, equal scores, zero-area boxes and -inf padding: bitwise;
-  5. kernel D (dyconv) against its plain version: two odd shapes,
-     (2, 37, 50, 24) -> 40 and (1, 5, 19, 72) -> 136 channels, then the
-     inputs the three SOEM sites of full-width DySOEM_SimFPN get from a
-     batch of 32 1280 px frames: the first 4 images of each with and
-     without ``emit_gap`` and, at the first site, ``fold_out``; then the
-     launch over all 32 images as the main path makes it, held against the
-     plain version 4 images at a time (the plain version's f32 copies
-     bound its batch);
-  5e. kernel E (the fused stem) against its plain version and against
-     kernel B of kernel A's output, on the uint8 frames (16, 640, 640, 3)
-     and on bf16 frames of an odd shape, with the share of elements that
-     are bitwise equal; then its path, the public op, 3 calls;
+  5. kernel D (dyconv) against its plain version: the shapes of
+     ``ops.dyconv.EDGE_SHAPES`` (sizes that straddle its 16 x 16 pixel
+     tile, its chunks of 16 input channels and its N tiles of 64 and 128
+     output channels; ``fold_out`` where H is even), then the inputs the
+     three SOEM sites of full-width DySOEM_SimFPN get from a batch of 32
+     1280 px frames: the first 4 images of each with and without
+     ``emit_gap`` and, at the first site, ``fold_out``; then the launch
+     over all 32 images as the main path makes it, held against the plain
+     version 4 images at a time (the plain version's f32 copies bound its
+     batch). Everywhere ``emit_gap`` leaves the output bitwise as it is,
+     and a second run gives bitwise the same output and sums;
+  5e. kernel E (the fused stem) against its plain version, and bitwise
+     against kernel B of kernel A's output (it runs kernel A's first layer
+     and kernel B's tile code), on the uint8 frames (16, 640, 640, 3) and
+     on bf16 frames of an odd shape; then its path, the public op, 3 calls;
   5f. kernel F (kernel B's stage ladder): the ``full`` stage bitwise equal
      to kernel B's output; then its path, the ladder's command-line entry
      ``uavdet_tpu_torch.scripts.l2_ablate``, which prints every stage's
@@ -66,6 +71,7 @@ nor PyYAML. The phases, in order:
      their leaky and add), with the
      least time the card could take (``bound_ms``: bytes over 3.35 TB/s or
      operations over the peak rate of their type, whichever is larger);
+     kernel D also on all-zero operands (what the power limit costs it);
   9. a ``torch.profiler`` window of each detector: device time by kernel.
 
 No detector path may launch kernel E, F or G: their paths are the op and
@@ -378,11 +384,12 @@ def main() -> int:
     from uavdet_tpu_torch.ops.block import (BLOCK_STAGES, fold_block_weights,
                                             post_stem_block,
                                             post_stem_block_plain)
-    from uavdet_tpu_torch.ops.dyconv import (dyconv, dyconv_plain,
-                                             parity_sums, rfold)
+    from uavdet_tpu_torch.ops.dyconv import (EDGE_SHAPES, dyconv,
+                                             dyconv_plain, parity_sums,
+                                             rfold)
     from uavdet_tpu_torch.ops.nms import (batched_nms, nms_alive,
                                           nms_alive_plain)
-    from uavdet_tpu_torch.ops.stem import (L2_STAGES,
+    from uavdet_tpu_torch.ops.stem import (L2_EDGE_SHAPES, L2_STAGES,
                                            detector_stem_fast_path,
                                            fused_stem_forward, stem_fused,
                                            stem_fused_plain, stem_l1,
@@ -459,6 +466,13 @@ def main() -> int:
         smoke.stats["stem_l2"].update(bound(
             nbytes(a1, out) + k2.numel() * 2,
             2 * 288 * 64 * out.numel() // 64, BF16_FLOPS))
+        for b, h, w in L2_EDGE_SHAPES:
+            a1 = 0.5 * torch.randn((b, h, w, 32), generator=gen, device=dev)
+            k2 = 0.08 * torch.randn((b, 64, 289), generator=gen, device=dev)
+            a1 = a1.to(torch.bfloat16)
+            out = stem_l2(a1, k2)
+            compare_bf16(smoke, f"stem_l2 edge {tuple(a1.shape)} -> "
+                         f"{tuple(out.shape)}", out, stem_l2_plain(a1, k2))
 
     @torch.inference_mode()
     def kernel_nms():
@@ -518,6 +532,11 @@ def main() -> int:
         got_g, sums = dyconv(x, k, mul, add, emit_gap=True)
         smoke.check(f"dyconv {label} emit_gap leaves the output as it is",
                     torch.equal(got_g, got), "bitwise")
+        again, sums_again = dyconv(x, k, mul, add, emit_gap=True)
+        smoke.check(f"dyconv {label} emit_gap twice on the same input",
+                    torch.equal(again, got_g)
+                    and torch.equal(sums_again, sums),
+                    "output and sums bitwise equal")
         sums_close(f"dyconv {label} emit_gap sums vs plain", sums, want_sums,
                    1e-3)
         sums_close(f"dyconv {label} emit_gap sums vs its own stored output",
@@ -558,16 +577,15 @@ def main() -> int:
 
     @torch.inference_mode()
     def kernel_d():
-        # odd H and W; C and Co below one chunk and one channel tile, then
-        # several of each with a ragged last one
-        for b, h, w, c, co in ((2, 37, 50, 24, 40), (1, 5, 19, 72, 136)):
+        # sizes on both sides of the kernel's pixel tile, K chunk and N tiles
+        for b, h, w, c, co in EDGE_SHAPES:
             x = torch.randn((b, h, w, c), generator=gen, device=dev)
             k = torch.randn((b, 9, c, co), generator=gen, device=dev) \
                 * (2.0 / (9 * c)) ** 0.5
             mul = 0.5 + torch.rand((co,), generator=gen, device=dev)
             add = 0.3 * torch.randn((b, co), generator=gen, device=dev)
-            check_dyconv("odd", x.to(torch.bfloat16), k.to(torch.bfloat16),
-                         mul, add, fold=False)
+            check_dyconv("edge", x.to(torch.bfloat16), k.to(torch.bfloat16),
+                         mul, add, fold=h % 2 == 0)
 
         def recording(x, k, mul, add, emit_gap=False):
             sites.append((x, k, mul, add, emit_gap))
@@ -619,8 +637,8 @@ def main() -> int:
                            f"{tuple(out.shape)} vs plain", out,
                            stem_fused_plain(x, k1, k2))
         smoke.stats["stem_fused"]["max_abs_err"] = err
-        compare_bf16(smoke, "stem_fused uint8 vs stem_l2(stem_l1)", out,
-                     stem_l2(a1, k2))
+        smoke.check("stem_fused uint8 == stem_l2(stem_l1), bitwise",
+                    torch.equal(out, stem_l2(a1, k2)), f"{tuple(out.shape)}")
         smoke.stats["stem_fused"].update(bound(
             nbytes(x, out) + (k1.numel() + k2.numel()) * 2,
             stem_ops(x.shape), BF16_FLOPS))
@@ -632,8 +650,8 @@ def main() -> int:
         out = stem_fused(odd, k1, k2)
         compare_bf16(smoke, "stem_fused bf16 (2,97,161,3) -> (2,49,81,64) "
                      "vs plain", out, stem_fused_plain(odd, k1, k2))
-        compare_bf16(smoke, "stem_fused bf16 odd vs stem_l2(stem_l1)", out,
-                     stem_l2(a1, k2))
+        smoke.check("stem_fused bf16 odd == stem_l2(stem_l1), bitwise",
+                    torch.equal(out, stem_l2(a1, k2)), f"{tuple(out.shape)}")
         # its path: the public op, as a caller that holds K1 and K2 calls it
         x, k1 = inputs["l1"]
         k2 = inputs["l2"][1]
@@ -911,6 +929,15 @@ def main() -> int:
                 t["ms_without_emit_gap"] = cuda_ms(
                     lambda: dyconv(x, k, mul, add), SOEM_ITERS, SOEM_WARMUP)
                 print(f"  without emit_gap {t['ms_without_emit_gap']:.4f} ms")
+            # the same launch on all-zero operands: the same instructions and
+            # bytes at a fraction of the switching power; what it gains, if
+            # anything, is what the card's power limit costs on real data
+            zx, zk = torch.zeros_like(x), torch.zeros_like(k)
+            t["ms_zero_operands"] = cuda_ms(
+                lambda: dyconv(zx, zk, mul, add, emit_gap=emit), SOEM_ITERS,
+                SOEM_WARMUP)
+            print(f"  on all-zero operands {t['ms_zero_operands']:.4f} ms")
+            del zx, zk
             t.update(inputs[f"dyconv_{i}"], site=f"soem_{i}")
             per_site.append(t)
             for key in total:

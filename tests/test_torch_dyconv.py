@@ -18,9 +18,16 @@ from uavdet_tpu.ops.pallas_dyconv import mixed_bias as jax_mixed_bias
 from uavdet_tpu.ops.pallas_dyconv import mixed_kernel as jax_mixed_kernel
 from uavdet_tpu.ops.pallas_dyconv import pallas_dyconv
 from uavdet_tpu_torch import kernels
-from uavdet_tpu_torch.ops.dyconv import (dyconv, dyconv_plain, gap_fold_order,
+from uavdet_tpu_torch.ops.dyconv import (EDGE_SHAPES, _dyconv_cuda, dyconv,
+                                         dyconv_plain, gap_fold_order,
                                          gap_plain_order, mixed_bias,
                                          mixed_kernel, parity_sums, rfold)
+
+# the edge shapes the TPU kernel takes as well: C and Co multiples of 128, W
+# of 8, H of the strip height 8
+TPU_EDGE_SHAPES = tuple(s for s in EDGE_SHAPES if s[3] % 128 == 0
+                        and s[4] % 128 == 0 and s[2] % 8 == 0
+                        and s[1] % 8 == 0)
 
 
 def _case(rng, b, h, w, c, co, affine=True):
@@ -165,3 +172,76 @@ def test_dispatch_and_rejections(rng):
         dyconv(x, k, mul, add[:, :4])
     with pytest.raises(ValueError, match="even H"):
         dyconv(x[:, :7], k, mul, add, fold_out=True)
+
+
+def _conv_f64(x, k, mul, add):
+    """SiLU(conv3x3 SAME(x[b], k[b]) * mul + add[b]) in float64 numpy on the
+    bf16-rounded operands; zero padding on x only."""
+    xq = torch.from_numpy(x).to(torch.bfloat16).double().numpy()
+    kq = torch.from_numpy(k).to(torch.bfloat16).double().numpy()
+    _, h, w, _ = x.shape
+    xp = np.pad(xq, ((0, 0), (1, 1), (1, 1), (0, 0)))
+    acc = sum(np.einsum("bhwc,bco->bhwo", xp[:, dy:dy + h, dx:dx + w],
+                        kq[:, 3 * dy + dx])
+              for dy in range(3) for dx in range(3))
+    y = acc * mul.astype(np.float64) + add.astype(np.float64)[:, None, None]
+    return y / (1.0 + np.exp(-y))
+
+
+def test_edge_shapes_straddle_the_kernel_tiles():
+    """The tuple the smoke test also reads: H * W off the 16 x 16 pixel tile,
+    C off the 16-channel chunk, Co at 8, 64, 72, 136 and 264."""
+    assert {s[4] for s in EDGE_SHAPES} >= {8, 64, 72, 136, 264}
+    assert any(s[1] % 16 and s[2] % 16 for s in EDGE_SHAPES)
+    assert any(s[3] % 16 for s in EDGE_SHAPES)
+    assert any(s[3] < 16 for s in EDGE_SHAPES)
+    assert all(s[3] % 8 == 0 and s[4] % 8 == 0 for s in EDGE_SHAPES)
+    assert TPU_EDGE_SHAPES
+
+
+@pytest.mark.parametrize("shape", EDGE_SHAPES)
+def test_dyconv_plain_edge_shapes_match_numpy(rng, shape):
+    """The plain version at the edges of the CUDA kernel's tiling, against a
+    float64 conv: one bf16 ulp plus margin on the store; the sums, which add
+    the stored values, within 1e-3 of the largest sum."""
+    args = _case(rng, *shape)
+    want = _conv_f64(*args)
+    got, sums = dyconv(*_torch_args(*args), emit_gap=True)
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == want.shape
+    np.testing.assert_allclose(_f32(got), want, rtol=1.6e-2, atol=1e-2)
+    stored = torch.from_numpy(want).to(torch.bfloat16)
+    want_sums = parity_sums(stored).double().numpy()
+    assert sums.shape == (shape[0], 2, 2, shape[4])
+    assert np.abs(sums.double().numpy() - want_sums).max() \
+        <= 1e-3 * np.abs(want_sums).max()
+    if shape[1] % 2 == 0:
+        assert torch.equal(dyconv(*_torch_args(*args), fold_out=True),
+                           rfold(got))
+
+
+@pytest.mark.parametrize("shape", TPU_EDGE_SHAPES)
+def test_dyconv_plain_edge_shapes_match_pallas_where_taken(rng, shape):
+    args = _case(rng, *shape)
+    want = pallas_dyconv(*_jax_args(*args), rs=8, interpret=True)
+    got = dyconv(*_torch_args(*args))
+    assert got.shape == want.shape
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=0.02, atol=0.02)
+
+
+@pytest.mark.parametrize("c,co", [(12, 8), (8, 12), (20, 36)])
+def test_kernel_wrapper_takes_multiples_of_8_only(rng, c, co):
+    """The kernel reads 16-byte vectors: its wrapper raises before any
+    launch for other channel counts, whatever the device."""
+    x, k, mul, add = _torch_args(*_case(rng, 1, 4, 4, c, co))
+    before = kernels.launch_counts()["dyconv"]
+    with pytest.raises(ValueError, match="multiples of 8"):
+        _dyconv_cuda(x, k, mul, add, False, False)
+    assert kernels.launch_counts()["dyconv"] == before
+
+
+def test_kernel_wrapper_takes_contiguous_bf16_only(rng):
+    x, k, mul, add = _torch_args(*_case(rng, 1, 4, 4, 8, 8))
+    with pytest.raises(ValueError, match="contiguous bf16"):
+        _dyconv_cuda(x.float(), k, mul, add, False, False)
+    with pytest.raises(ValueError, match="contiguous bf16"):
+        _dyconv_cuda(x.transpose(1, 2), k, mul, add, False, False)

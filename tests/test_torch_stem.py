@@ -19,14 +19,19 @@ from uavdet_tpu.models import DyYOLO as JaxDyYOLO
 from uavdet_tpu.models.layers import DyConvModule as JaxDyConv
 from uavdet_tpu.ops.pallas_stem import mix_and_fold as jax_mix_and_fold
 from uavdet_tpu.ops.pallas_stem_split import fused_stem_forward as jax_stem
-from uavdet_tpu.ops.pallas_stem_split import pallas_l1
+from uavdet_tpu.ops.pallas_stem_split import pallas_l1, pallas_l2
 from uavdet_tpu_torch.models import DyYOLO
-from uavdet_tpu_torch.ops.stem import (fused_stem_forward, mix_and_fold,
-                                       stem_l1, stem_l1_plain, stem_l2)
+from uavdet_tpu_torch.ops.stem import (L2_EDGE_SHAPES, _stem_l2_cuda,
+                                       fused_stem_forward, mix_and_fold,
+                                       stem_l1, stem_l1_plain, stem_l2,
+                                       stem_l2_plain)
 from uavdet_tpu_torch.utils.weights import load_flax_variables
 
 CFG = (("DyConv", 32, 3, 1), ("DyConv", 64, 3, 2), ("B", 1), ("S",))
 RTOL, ATOL, MIN_EQUAL = 1.6e-2, 1e-2, 0.999
+# the edge shapes the TPU kernel takes as well: H a multiple of 16
+TPU_L2_EDGE_SHAPES = tuple(s for s in L2_EDGE_SHAPES
+                           if s[1] % 16 == 0 and s[2] % 128 == 0)
 
 
 def perturb_bn(variables, rng):
@@ -171,3 +176,73 @@ def test_stem_kernels_reject_other_devices():
         stem_l2(torch.empty((1, 8, 8, 32), dtype=torch.bfloat16,
                             device="meta"),
                 torch.empty((1, 64, 289), device="meta"))
+
+
+def test_l2_edge_shapes_straddle_the_kernel_tile():
+    """The tuple the smoke test also reads: odd H and W, and output sizes on
+    both sides of the 16 x 16 output tile."""
+    assert any(h % 2 and w % 2 for _, h, w in L2_EDGE_SHAPES)
+    outs = [((h + 1) // 2, (w + 1) // 2) for _, h, w in L2_EDGE_SHAPES]
+    assert any(ho < 16 and wo < 16 for ho, wo in outs)
+    assert any(ho % 16 == 1 for ho, _ in outs)
+    assert any(wo % 16 == 1 for _, wo in outs)
+    assert any(ho % 16 == 15 or wo % 16 == 15 for ho, wo in outs)
+    assert TPU_L2_EDGE_SHAPES
+
+
+@pytest.mark.parametrize("shape", L2_EDGE_SHAPES)
+def test_kernel_b_plain_edge_shapes_match_numpy(rng, shape):
+    """Kernel B's plain version at the edges of the CUDA kernel's tiling,
+    against a float64 stride-2 conv of the same bf16 operands: zero padding
+    on a1 only, ceil(H/2) x ceil(W/2) outputs."""
+    b, h, w = shape
+    a1 = torch.from_numpy(rng.normal(size=(b, h, w, 32)).astype(
+        np.float32) * 0.5).to(torch.bfloat16)
+    k2 = (rng.normal(size=(b, 64, 289)) * 0.08).astype(np.float32)
+    got = stem_l2(a1, torch.from_numpy(k2))
+    ho, wo = (h + 1) // 2, (w + 1) // 2
+    assert got.shape == (b, ho, wo, 64) and got.dtype == torch.bfloat16
+    kq = torch.from_numpy(k2).to(torch.bfloat16).double().numpy()
+    ap = np.pad(a1.double().numpy(), ((0, 0), (1, 2), (1, 2), (0, 0)))
+    patches = np.concatenate(
+        [ap[:, ki:ki + 2 * ho:2, kj:kj + 2 * wo:2]
+         for ki in range(3) for kj in range(3)], axis=-1)   # (b, ho, wo, 288)
+    acc = np.einsum("bhwt,bot->bhwo", patches, kq[..., :288]) \
+        + kq[:, None, None, :, 288]
+    want = acc / (1.0 + np.exp(-acc))
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=RTOL,
+                               atol=ATOL)
+
+
+@pytest.mark.parametrize("shape", TPU_L2_EDGE_SHAPES)
+def test_kernel_b_plain_edge_shapes_match_pallas_l2(rng, shape):
+    """Where the TPU kernel takes the shape: ``pallas_l2`` in interpret mode
+    on the banks ``pallas_l1`` makes, against the plain version on the same
+    first activation."""
+    b, h, w = shape
+    x = _frames(rng, (b, h, w, 3), uint8=False)
+    k1 = (rng.normal(size=(b, 32, 28)) * 0.05).astype(np.float32)
+    k2 = (rng.normal(size=(b, 64, 289)) * 0.05).astype(np.float32)
+    banks, _ = pallas_l1(jnp.asarray(x), jnp.asarray(k1), interpret=True)
+    want = pallas_l2(banks, jnp.asarray(k2), h=h, wq=w // 2, interpret=True)
+    a1 = np.zeros((b, h, w, 32), np.float32)
+    for q, bank in enumerate(banks):
+        rp, cp = divmod(q, 2)
+        a1[:, rp::2, cp::2] = np.asarray(
+            bank, np.float32)[:, :, :h // 2, :w // 2].transpose(0, 2, 3, 1)
+    got = stem_l2_plain(torch.from_numpy(a1).to(torch.bfloat16),
+                        torch.from_numpy(k2))
+    _assert_bf16_close(got.float().numpy(), want)
+
+
+def test_kernel_b_wrapper_rules():
+    """The kernel's wrapper raises before any launch on shapes and types
+    the kernel does not take, whatever the device."""
+    a1 = torch.zeros((1, 8, 8, 32), dtype=torch.bfloat16)
+    k2 = torch.zeros((1, 64, 289))
+    with pytest.raises(ValueError, match="a1"):
+        _stem_l2_cuda(a1.float(), k2)
+    with pytest.raises(ValueError, match="a1"):
+        _stem_l2_cuda(a1[..., :16], k2)
+    with pytest.raises(ValueError, match="k2"):
+        _stem_l2_cuda(a1, k2[:, :, :288])

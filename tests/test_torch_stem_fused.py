@@ -116,3 +116,46 @@ def test_stem_l2_stage_rejects_unknown_stage():
     with pytest.raises(ValueError):
         stem_l2_stage(torch.empty((1, 8, 8, 32), dtype=torch.bfloat16),
                       torch.empty((1, 64, 289)), "+rolls")
+
+
+def test_l2_stages_match_the_ladder_script():
+    """Every stage of the ladder has a label in the command-line entry that
+    times it, and ``full`` (kernel B itself) is last."""
+    import inspect
+
+    from uavdet_tpu_torch.scripts import l2_ablate
+    assert L2_STAGES[-1] == "full" and len(set(L2_STAGES)) == len(L2_STAGES)
+    src = inspect.getsource(l2_ablate)
+    for i, stage in enumerate(L2_STAGES):
+        assert f'"{stage}": ' in src, stage
+        assert f"  {i} {stage} " in l2_ablate.__doc__, stage
+
+
+@pytest.mark.parametrize("b,h,w", [(1, 33, 35), (2, 9, 13), (1, 31, 65)])
+def test_stem_fused_plain_odd_shapes_match_numpy(rng, b, h, w):
+    """Both layers at sizes off the kernels' 16 x 16 output tile, against a
+    float64 conv pair with the first activation rounded to bf16 in between
+    and zero (not SiLU(bias)) outside the image."""
+    x, k1, k2 = _case(rng, b, h, w)
+    got = stem_fused(torch.from_numpy(x), torch.from_numpy(k1),
+                     torch.from_numpy(k2)).float().numpy()
+
+    def q(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(
+            torch.bfloat16).double().numpy()
+
+    def conv(a, k, stride):
+        ho, wo = -(-a.shape[1] // stride), -(-a.shape[2] // stride)
+        ap = np.pad(a, ((0, 0), (1, 2), (1, 2), (0, 0)))
+        patches = np.concatenate(
+            [ap[:, ki:ki + stride * ho:stride, kj:kj + stride * wo:stride]
+             for ki in range(3) for kj in range(3)], axis=-1)
+        acc = np.einsum("bhwt,bot->bhwo", patches, k[..., :-1]) \
+            + k[:, None, None, :, -1]
+        return acc / (1.0 + np.exp(-acc))
+
+    want = conv(q(conv(q(x), q(k1), 1)), q(k2), 2)
+    assert got.shape == want.shape == (b, (h + 1) // 2, (w + 1) // 2, 64)
+    # a first-layer value that rounds the other way moves a second-layer
+    # sum by 2^-8 of one product: far inside the store's tolerance
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)

@@ -21,6 +21,19 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162flo
 // SiLU in f32, as the TPU kernels compute it before the bf16 store.
 __device__ __forceinline__ float silu(float v) { return v / (1.0f + expf(-v)); }
 
+// The same on the special-function unit: v / (1 + 2^(-v log2 e)) with
+// ex2.approx and rcp.approx (about two units in the last place of f32 each, and
+// results below 2^-126 flushed to zero): far inside the bf16 store's half unit,
+// and five instructions where the exact form takes some thirty, for epilogues
+// that are not hidden under other work. A kernel's output bits depend on which
+// of the two it uses.
+__device__ __forceinline__ float silu_fast(float v) {
+  float e, r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(e) : "f"(v * -1.4426950408889634f));
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(1.0f + e));
+  return v * r;
+}
+
 // Two f32 values rounded to bf16 and packed little-endian (a in the low half).
 __device__ __forceinline__ uint32_t pack_bf16x2(float a, float b) {
   __nv_bfloat162 p = __floats2bfloat162_rn(a, b);

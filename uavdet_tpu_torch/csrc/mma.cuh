@@ -1,6 +1,7 @@
 // Tensor-core and asynchronous-copy primitives shared by the kernels that run
-// their convolutions as implicit GEMMs on mma.sync fragments (dyconv.cu,
-// post_stem_block.cu).
+// their convolutions as implicit GEMMs: ldmatrix and cp.async for all of them,
+// mma.sync for post_stem_block.cu and the stem's second layer
+// (stem_l2_tile.cuh); dyconv.cu takes its product from wgmma.cuh.
 #pragma once
 
 #include "common.cuh"

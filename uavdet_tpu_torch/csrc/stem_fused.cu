@@ -17,25 +17,29 @@
 // product answer Mosaic's tiling and are not reproduced.
 //
 // What bounds it on this card: at B=16, 640x640 it moves 19.7 MB in and 210 MB
-// out for 71.7 GFLOP (0.07 ms either way), so neither: this first version runs
-// on the CUDA cores like kernels A and B and is bound by their f32 rate and the
-// shared-memory loads that feed it. Design: a block of 512 threads keeps K2[b]
-// (f32, 74 KB) and K1[b] in shared memory and walks 16x16 output tiles of its
-// image. Per tile it stages the 35x35x3 frame window as f32, computes the
-// 33x33x32 window of a1 the tile needs into shared memory (8 threads per pixel,
-// 4 channels each, the products in kernel A's order, so a1 has kernel A's
-// bits), and runs the second layer from there with kernel B's device code
-// (stem_l2_tile.cuh), 172 KB of shared memory in all and one block per SM. A
-// tile recomputes a1's one-pixel halo: 1089 pixels for 1024 it owns.
+// out for 71.7 GFLOP (0.07 ms either way), so neither: its first layer runs on
+// the CUDA cores like kernel A (K = 27 is too short for the tensor cores) and
+// is bound by their f32 rate and the shared-memory loads that feed it; the
+// second layer runs on the tensor cores with kernel B's device code. Design: a
+// block of 512 threads keeps K2[b] (bf16, 38 KB) and K1[b] in shared memory and
+// walks 16x16 output tiles of its image. Per tile it stages the 35x35x3 frame
+// window as f32, computes the 33x33x32 window of a1 the tile needs into shared
+// memory (8 threads per pixel, 4 channels each, the products in kernel A's
+// order and kernel A's SiLU, so a1 has kernel A's bits), written in the
+// column-parity layout kernel B's tile code reads (stem_l2_tile.cuh), and runs
+// the second layer from there, one tile row per warp: the same MMAs in the same
+// order as kernel B, so the output has kernel B's bits. 148 KB of shared memory
+// and one block per SM. A tile recomputes a1's one-pixel halo: 1089 pixels for
+// 1024 it owns.
 #include "stem_l2_tile.cuh"
 
 namespace {
 
 using namespace uavdet::l2;
 
-constexpr int TR = 16;                           // output tile rows
-constexpr int THREADS = Tile<TR>::THREADS;       // 512
-constexpr int IR = Tile<TR>::IR;                 // rows of the a1 window: 33
+constexpr int THREADS = 512;
+constexpr int RW = TR / (THREADS / 32);          // tile rows per warp: 1
+constexpr int CG = 8;                            // threads per pixel of a1, 4 channels each
 constexpr int XR = IR + 2;                       // rows of the frame window
 constexpr int XC = IC + 2;                       // columns of the frame window
 constexpr int C1 = 32;                           // channels of a1
@@ -43,9 +47,10 @@ constexpr int K1W = 28;                          // K1 row: 27 taps + bias
 constexpr int SLOTS = THREADS / CG;              // a1 pixels the block computes at once
 constexpr size_t K1_BYTES = sizeof(float) * K1W * C1;
 constexpr size_t X_BYTES = sizeof(float4) * XR * XC;
-constexpr size_t SMEM_BYTES = W_BYTES + K1_BYTES + X_BYTES + Tile<TR>::IN_BYTES;
+constexpr size_t SMEM_BYTES = W_BYTES + K1_BYTES + X_BYTES + IN_BYTES;
 
 static_assert(CI == C1 && C1 == 4 * CG, "8 threads of 4 channels cover a pixel of a1");
+static_assert(RW * (THREADS / 32) == TR, "the warps cover the tile's rows");
 static_assert((W_BYTES + K1_BYTES + X_BYTES) % 16 == 0, "the a1 window is 16-byte aligned");
 
 template <typename T>
@@ -54,11 +59,11 @@ stem_fused_kernel(const T* __restrict__ x, const __nv_bfloat16* __restrict__ k1,
                   const __nv_bfloat16* __restrict__ k2, __nv_bfloat16* __restrict__ out, int H,
                   int W, int Ho, int Wo, int tiles_x, int n_tiles) {
   extern __shared__ __align__(16) unsigned char smem[];
-  float* s_w = reinterpret_cast<float*>(smem);                           // [KT][CO]
-  float* s_bias = s_w + KT * CO;                                          // [CO]
+  __nv_bfloat16* s_w = reinterpret_cast<__nv_bfloat16*>(smem);            // [CO][W_STRIDE]
+  float* s_bias = reinterpret_cast<float*>(s_w + CO * W_STRIDE);          // [CO]
   float* s_k1 = s_bias + CO;                                              // [K1W][C1]
   float4* s_x = reinterpret_cast<float4*>(s_k1 + K1W * C1);               // [XR][XC] (r, g, b, -)
-  __nv_bfloat16* s_in = reinterpret_cast<__nv_bfloat16*>(s_x + XR * XC);  // [IR][IC][IN_STRIDE]
+  __nv_bfloat16* s_in = reinterpret_cast<__nv_bfloat16*>(s_x + XR * XC);  // [IR][2][PC][IN_STRIDE]
 
   const int b = blockIdx.y;
   const int tid = threadIdx.x;
@@ -69,8 +74,10 @@ stem_fused_kernel(const T* __restrict__ x, const __nv_bfloat16* __restrict__ k1,
     s_k1[(i % K1W) * C1 + i / K1W] = __bfloat162float(k1b[i]);
 
   const T* xb = x + static_cast<size_t>(b) * H * W * 3;
-  const Lane t(tid);
+  const int cg = tid % CG;
   const int slot = tid / CG;
+  const int lane = tid % 32;
+  const int row0 = RW * (tid / 32);
 
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const int oy0 = (tile / tiles_x) * TR;
@@ -106,29 +113,31 @@ stem_fused_kernel(const T* __restrict__ x, const __nv_bfloat16* __restrict__ k1,
 #pragma unroll
           for (int ch = 0; ch < 3; ++ch) {
             const float4 w =
-                *reinterpret_cast<const float4*>(s_k1 + (3 * tap + ch) * C1 + 4 * t.cg);
+                *reinterpret_cast<const float4*>(s_k1 + (3 * tap + ch) * C1 + 4 * cg);
             acc[0] = fmaf(w.x, in[ch], acc[0]);
             acc[1] = fmaf(w.y, in[ch], acc[1]);
             acc[2] = fmaf(w.z, in[ch], acc[2]);
             acc[3] = fmaf(w.w, in[ch], acc[3]);
           }
         }
-        const float4 bias = *reinterpret_cast<const float4*>(s_k1 + (K1W - 1) * C1 + 4 * t.cg);
+        const float4 bias = *reinterpret_cast<const float4*>(s_k1 + (K1W - 1) * C1 + 4 * cg);
         packed = make_uint2(
             uavdet::pack_bf16x2(uavdet::silu(acc[0] + bias.x), uavdet::silu(acc[1] + bias.y)),
             uavdet::pack_bf16x2(uavdet::silu(acc[2] + bias.z), uavdet::silu(acc[3] + bias.w)));
       }
-      *reinterpret_cast<uint2*>(s_in + p * IN_STRIDE + 4 * t.cg) = packed;
+      *reinterpret_cast<uint2*>(s_in + window_index(r, c) + 4 * cg) = packed;
     }
     __syncthreads();
 
-    float acc[PX][8];
+    float acc[RW][CO / 8][4];
 #pragma unroll
-    for (int j = 0; j < PX; ++j)
+    for (int i = 0; i < RW; ++i)
 #pragma unroll
-      for (int o = 0; o < 8; ++o) acc[j][o] = 0.0f;
-    tile_fma<TR>(s_in, s_w, t, acc);
-    tile_store<TR, true>(acc, s_bias, t, out, b, Ho, Wo, oy0, ox0);
+      for (int nt = 0; nt < CO / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][nt][e] = 0.0f;
+    tile_mma<RW>(s_in, s_w, row0, lane, acc);
+    tile_store<RW, true>(acc, s_bias, row0, lane, out, b, Ho, Wo, oy0, ox0);
   }
 }
 

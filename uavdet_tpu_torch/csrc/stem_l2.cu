@@ -11,19 +11,24 @@
 // the TPU. H and W may be any size (the TPU kernel's H % 16 rule is a strip
 // rule of its own).
 //
-// What bounds it on this card: arithmetic. At B=16, 640x640 it is 60.6 GFLOP
-// (1,638,400 output pixels x 64 x 289 x 2) against 210 MB read and 105 MB
-// written, so on the CUDA cores (about 67 TFLOP/s FP32 on the data sheet) the
-// floor is about 1 ms. This first version is a per-sample-weight implicit GEMM
-// on the CUDA cores; moving it to the tensor cores is later work. Design: one
-// block per (image, worker) keeps K2[b] in shared memory as f32 (74 KB, loaded
-// once) and walks many 8x16 output tiles of its image. For each tile it stages
-// the 17x33x32 input window (with its zero halo) in shared memory, then each
-// thread accumulates 4 output pixels x 8 channels in registers: per input
-// value it issues 8 FMAs, and per 4 pixels it reads 8 weights as two float4
-// broadcasts. The staged pixel stride is 72 bytes so that the four pixels a
-// warp reads at once fall in distinct banks. Two blocks fit on one SM. The
-// per-tile device code is in stem_l2_tile.cuh, which the fused stem shares.
+// What bounds it on this card: bytes. At B=16, 640x640 it reads 419 MB and
+// writes 210 MB (0.19 ms at 3.35 TB/s) for 60.4 GFLOP (0.06 ms at 989 TFLOP/s
+// bf16). A first version ran the product on the CUDA cores and took 3.1 ms on
+// an NVIDIA H100 80GB HBM3 at 700 W, 2.3 of them in the tap loop. Design now:
+// the product runs on the tensor cores (mma.sync m16n8k16 through
+// stem_l2_tile.cuh, which the fused stem shares), and the rest is arranged so
+// that device memory waits as little as it can. One block of 8 warps per SM
+// keeps K2[b] in shared memory as bf16 (38 KB, loaded once) and walks 16 x 16
+// output tiles of its image; each warp owns two tile rows. The 33 x 33 x 32 input windows are double-buffered: the next tile's
+// window is copied with cp.async (zero fill outside the image) while this
+// tile's 288 MMAs per warp and its stores run, 213 KB of shared memory in all.
+// The window is split by column parity so that the stride-2 ldmatrix rows are
+// free of bank conflicts. The grid is one wave: floor(resident blocks / B)
+// workers per image, from the occupancy the runtime reports. What stays: the
+// block's warps move through load, product, SiLU and store together, so device
+// memory idles during part of each tile (0.33 ms against the 0.19 ms bound on
+// an NVIDIA H100 80GB HBM3 at 700 W), and the epilogue stores 4 bytes per
+// thread from the accumulator layout.
 //
 // The same source is also the stage ladder of this kernel (it replaces the TPU
 // harness scripts/l2_ablate.py: make_kernel / run_variant): the kernel is a
@@ -33,11 +38,14 @@
 
 namespace {
 
+using namespace uavdet;
 using namespace uavdet::l2;
 
-constexpr int TR = 8;                            // output tile rows
-constexpr int THREADS = Tile<TR>::THREADS;       // 256
-constexpr size_t SMEM_BYTES = W_BYTES + Tile<TR>::IN_BYTES;
+constexpr int THREADS = 256;
+constexpr int RW = TR / (THREADS / 32);          // tile rows per warp: 2
+constexpr size_t SMEM_BYTES = W_BYTES + 2 * IN_BYTES;
+
+static_assert(RW * (THREADS / 32) == TR, "the warps cover the tile's rows");
 
 // The stage ladder over this kernel: each stage adds one step to the one
 // before it and still stores every output tile, a cheap function of what the
@@ -46,62 +54,82 @@ constexpr size_t SMEM_BYTES = W_BYTES + Tile<TR>::IN_BYTES;
 enum Stage {
   STORE = 0,   // write the output tiles only
   K2 = 1,      // + stage K2[b] in shared memory
-  WINDOW = 2,  // + stage each tile's input window
-  FMA = 3,     // + the tap loop
+  WINDOW = 2,  // + each tile's input window, double-buffered with cp.async
+  MMA = 3,     // + the tap loop on the tensor cores
   FULL = 4     // + bias, SiLU: kernel B
 };
 
 template <int STAGE>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 1)
 stem_l2_kernel(const __nv_bfloat16* __restrict__ a1, const __nv_bfloat16* __restrict__ k2,
                __nv_bfloat16* __restrict__ out, int H, int W, int Ho, int Wo, int tiles_x,
                int n_tiles) {
   extern __shared__ __align__(16) unsigned char smem[];
-  float* s_w = reinterpret_cast<float*>(smem);                           // [KT][CO]
-  float* s_bias = s_w + KT * CO;                                          // [CO]
-  __nv_bfloat16* s_in = reinterpret_cast<__nv_bfloat16*>(s_bias + CO);   // [IR][IC][IN_STRIDE]
+  __nv_bfloat16* const s_w = reinterpret_cast<__nv_bfloat16*>(smem);            // [CO][W_STRIDE]
+  float* const s_bias = reinterpret_cast<float*>(s_w + CO * W_STRIDE);          // [CO]
+  __nv_bfloat16* const s_in = reinterpret_cast<__nv_bfloat16*>(s_bias + CO);    // 2 windows
 
   const int b = blockIdx.y;
   const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int row0 = RW * (tid / 32);
 
   if (STAGE >= K2) stage_k2<THREADS>(k2 + static_cast<size_t>(b) * CO * KW, s_w, s_bias, tid);
 
   const __nv_bfloat16* ab = a1 + static_cast<size_t>(b) * H * W * CI;
-  const Lane t(tid);
+  auto load = [&](int tile, __nv_bfloat16* dst) {
+    if (STAGE >= WINDOW && tile < n_tiles)
+      load_window<THREADS>(ab, dst, H, W, 2 * (tile / tiles_x) * TR - 1,
+                           2 * (tile % tiles_x) * TC - 1, tid);
+    cp_async_commit();
+  };
 
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+  int tile = blockIdx.x;
+  load(tile, s_in);
+  for (int it = 0; tile < n_tiles; tile += gridDim.x, ++it) {
+    const __nv_bfloat16* cur = s_in + (it & 1) * IN_ELEMS;
+    load(tile + gridDim.x, s_in + ((it + 1) & 1) * IN_ELEMS);
+    cp_async_wait<1>();
+    __syncthreads();  // this tile's window (and K2) is staged for every thread
+
     const int oy0 = (tile / tiles_x) * TR;
     const int ox0 = (tile % tiles_x) * TC;
-    __syncthreads();  // K2 is staged, and the previous tile is done with s_in
-    if (STAGE >= WINDOW) stage_window<TR>(ab, s_in, H, W, 2 * oy0 - 1, 2 * ox0 - 1, tid);
-    __syncthreads();
-
-    float acc[PX][8];
+    float acc[RW][CO / 8][4];
 #pragma unroll
-    for (int j = 0; j < PX; ++j)
+    for (int i = 0; i < RW; ++i)
 #pragma unroll
-      for (int o = 0; o < 8; ++o) acc[j][o] = 0.0f;
+      for (int nt = 0; nt < CO / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][nt][e] = 0.0f;
 
-    if (STAGE >= FMA) {
-      tile_fma<TR>(s_in, s_w, t, acc);
+    if (STAGE >= MMA) {
+      tile_mma<RW>(cur, s_w, row0, lane, acc);
     } else if (STAGE == WINDOW) {
-      // the centre tap's first 8 channels of each of the thread's pixels
+      // the centre tap's channels of each of the thread's pixels
 #pragma unroll
-      for (int j = 0; j < PX; ++j)
+      for (int i = 0; i < RW; ++i)
 #pragma unroll
-        for (int o = 0; o < 8; ++o)
-          acc[j][o] = __bfloat162float(s_in[((2 * (t.pr + Tile<TR>::ROW_STEP * j) + 1) * IC +
-                                             2 * t.pc + 1) * IN_STRIDE + o]);
+        for (int nt = 0; nt < CO / 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            acc[i][nt][e] = __bfloat162float(
+                cur[window_index(2 * (row0 + i) + 1, 2 * (lane / 4 + 8 * (e / 2)) + 1) +
+                    (8 * nt + 2 * (lane % 4) + e % 2) % CI]);
     } else if (STAGE == K2) {
 #pragma unroll
-      for (int j = 0; j < PX; ++j)
+      for (int i = 0; i < RW; ++i)
 #pragma unroll
-        for (int o = 0; o < 4; ++o) {
-          acc[j][o] = s_w[(t.pr * TC + t.pc + j) * CO + 4 * t.cg + o];
-          acc[j][4 + o] = s_bias[32 + 4 * t.cg + o];
-        }
+        for (int nt = 0; nt < CO / 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int o = 8 * nt + 2 * (lane % 4) + e % 2;
+            acc[i][nt][e] =
+                __bfloat162float(s_w[o * W_STRIDE + (row0 + i) * TC + lane / 4 + 8 * (e / 2)]) +
+                s_bias[o];
+          }
     }
-    tile_store<TR, STAGE == FULL>(acc, s_bias, t, out, b, Ho, Wo, oy0, ox0);
+    tile_store<RW, STAGE == FULL>(acc, s_bias, row0, lane, out, b, Ho, Wo, oy0, ox0);
+    __syncthreads();  // every warp is done with this window before it is refilled
   }
 }
 
@@ -114,14 +142,19 @@ cudaError_t launch(const void* a1, const void* k2, void* out, int B, int H, int 
   const int n_tiles = tiles_x * ((Ho + TR - 1) / TR);
   int dev = 0;
   int sms = 0;
+  int resident = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(stem_l2_kernel<STAGE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(SMEM_BYTES));
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, stem_l2_kernel<STAGE>, THREADS,
+                                                        SMEM_BYTES);
   if (err != cudaSuccess) return err;
-  // two blocks per SM across the batch; each walks several tiles of one image
-  int workers = (2 * sms + B - 1) / B;
+  // one wave: as many workers per image as fit on the card at once, rounded
+  // down; each walks several tiles of one image
+  int workers = resident * sms / B;
   if (workers > n_tiles) workers = n_tiles;
   if (workers < 1) workers = 1;
   stem_l2_kernel<STAGE><<<dim3(workers, B), THREADS, SMEM_BYTES, stream>>>(
@@ -135,6 +168,7 @@ cudaError_t launch(const void* a1, const void* k2, void* out, int B, int H, int 
 // a1: (B, H, W, 32) bf16; k2: (B, 64, 289) bf16; out: (B, ceil(H/2), ceil(W/2), 64) bf16.
 UAVDET_EXPORT int uavdet_stem_l2(const void* a1, const void* k2, void* out, int B, int H, int W,
                                  void* stream) {
+  if (B < 1 || B > 65535 || H < 1 || W < 1) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(launch<FULL>(a1, k2, out, B, H, W, static_cast<cudaStream_t>(stream)));
 }
 
@@ -143,11 +177,12 @@ UAVDET_EXPORT int uavdet_stem_l2(const void* a1, const void* k2, void* out, int 
 UAVDET_EXPORT int uavdet_stem_l2_stage(const void* a1, const void* k2, void* out, int B, int H,
                                        int W, int stage, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B < 1 || B > 65535 || H < 1 || W < 1) return static_cast<int>(cudaErrorInvalidValue);
   switch (stage) {
     case STORE: return static_cast<int>(launch<STORE>(a1, k2, out, B, H, W, s));
     case K2: return static_cast<int>(launch<K2>(a1, k2, out, B, H, W, s));
     case WINDOW: return static_cast<int>(launch<WINDOW>(a1, k2, out, B, H, W, s));
-    case FMA: return static_cast<int>(launch<FMA>(a1, k2, out, B, H, W, s));
+    case MMA: return static_cast<int>(launch<MMA>(a1, k2, out, B, H, W, s));
     case FULL: return static_cast<int>(launch<FULL>(a1, k2, out, B, H, W, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

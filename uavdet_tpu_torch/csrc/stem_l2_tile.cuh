@@ -1,19 +1,35 @@
-// The stride-2 second stem layer on one output tile, from shared memory: the
-// device code that kernel B (stem_l2.cu), its stage ladder and the fused stem
-// (stem_fused.cu) share.
+// The stride-2 second stem layer on one output tile, from shared memory, on the
+// tensor cores: the device code that kernel B (stem_l2.cu), its stage ladder
+// and the fused stem (stem_fused.cu) share. It replaces the per-strip body of
+// the TPU kernel uavdet_tpu/ops/pallas_stem_split.py: make_l2_kernel.
 //
 //     out = bf16(SiLU(conv3x3 s2 p1(a1, K2[b]) + bias))          32 -> 64 channels
 //
-// A block keeps K2[b] in shared memory as f32, [tap][channel out] with the taps
-// ki-major, then kj, then channel in, and the bias row behind them. Per output
-// tile of TR x 16 pixels it holds the (2 TR + 1) x 33 x 32 window of the first
-// activation, with its zero halo, as bf16 with 72-byte pixels (the four pixels
-// a warp reads at once then fall in distinct banks). Each thread accumulates 4
-// output pixels x 8 channels in registers: per input value 8 FMAs, per 4 pixels
-// 8 weights as two float4 broadcasts. The block has 32 TR threads.
+// What bounds the layer on this card: bytes (630 MB at batch 16, 640 px, for
+// 60.4 GFLOP), once the product is off the CUDA cores, where it took 2.3 of a
+// first version's 3.1 ms (NVIDIA H100 80GB HBM3, 700 W). So the tile code is
+// an implicit GEMM on mma.sync m16n8k16 bf16 fragments with f32 sums (M = 16
+// output pixels of a row, N = 64, K = 288 = 9 taps x 2 k16 steps), and what it
+// is given is laid out for it:
+//   K2[b] stays as it lies in device memory, [channel out][tap] bf16 with the
+//     taps ki-major, then kj, then channel in: that is mma's "col" B operand,
+//     read by plain ldmatrix. Rows are 592 bytes apart (296 bf16), so the eight
+//     rows of an ldmatrix phase fall in eight distinct 16-byte bank groups. The
+//     bias column is kept apart as f32. 38 KB, where f32 weights took 74 KB.
+//   The window of the first activation a tile of 16 x 16 output pixels reads is
+//     33 x 33 pixels (zero halo). A fragment's 16 output pixels read input
+//     columns two apart, and 16-byte-aligned pixels two apart collide in pairs
+//     on the banks, so the window is split by column parity: [row][parity][17]
+//     pixels of 80 bytes (32 channels + 16 bytes). Tap kj reads parity kj % 2 at
+//     entry ox + kj / 2: consecutive entries, 80 bytes apart, no bank conflict.
+// A warp owns RW rows of the tile x 16 columns x 64 channels (RW x 32 sums per
+// thread) and reuses every B fragment for its RW A fragments. The epilogue adds
+// the bias, applies SiLU with the fast exponential and division (silu_fast: B,
+// the ladder's last stage and the fused stem share it and agree bit for bit)
+// and stores each thread's channel pairs straight from the accumulator layout.
 #pragma once
 
-#include "common.cuh"
+#include "mma.cuh"
 
 namespace uavdet {
 namespace l2 {
@@ -22,131 +38,127 @@ constexpr int CI = 32;
 constexpr int CO = 64;
 constexpr int KT = 9 * CI;                       // 288 taps
 constexpr int KW = KT + 1;                       // K2 row: taps + bias column
-constexpr int TC = 16;                           // output tile columns
-constexpr int IC = 2 * TC + 1;                   // staged input columns (with halo)
-constexpr int IN_STRIDE = CI + 4;                // bf16 per staged pixel (72 bytes)
-constexpr int CG = 8;                            // channel groups of 4 + 4 channels
-constexpr int PX = 4;                            // output pixels per thread
-constexpr size_t W_BYTES = sizeof(float) * (KT * CO + CO);
+constexpr int TR = 16;                           // output tile rows
+constexpr int TC = 16;                           // output tile columns: one M fragment
+constexpr int IR = 2 * TR + 1;                   // window rows (with halo)
+constexpr int IC = 2 * TC + 1;                   // window columns (with halo)
+constexpr int PC = TC + 1;                       // entries of a column-parity plane
+constexpr int IN_STRIDE = CI + 8;                // bf16 per staged pixel (80 bytes)
+constexpr int W_STRIDE = KT + 8;                 // bf16 per staged row of K2 (592 bytes)
+constexpr int IN_ELEMS = IR * 2 * PC * IN_STRIDE;
+constexpr size_t IN_BYTES = sizeof(__nv_bfloat16) * IN_ELEMS;
+constexpr size_t W_BYTES = sizeof(__nv_bfloat16) * CO * W_STRIDE + sizeof(float) * CO;
 
-template <int TR>
-struct Tile {
-  static constexpr int IR = 2 * TR + 1;          // staged input rows (with halo)
-  static constexpr int THREADS = CG * TR * TC / PX;
-  static constexpr int ROW_STEP = TR / PX;       // rows between a thread's pixels
-  static constexpr size_t IN_BYTES = sizeof(__nv_bfloat16) * IR * IC * IN_STRIDE;
-  static_assert(TR % PX == 0, "a thread's 4 pixels are TR / 4 rows apart");
-};
+static_assert(W_BYTES % 16 == 0 && IN_BYTES % 16 == 0, "16-byte aligned regions");
 
-// What a thread owns: channels 4cg..4cg+3 and 32+4cg..32+4cg+3 of the tile's
-// pixels (pr + ROW_STEP j, pc), j = 0..3.
-struct Lane {
-  int cg, pr, pc;
-  __device__ __forceinline__ explicit Lane(int tid)
-      : cg(tid % CG), pr(tid / CG / TC), pc(tid / CG % TC) {}
-};
-
-__device__ __forceinline__ void fma8(float* acc, float x, const float4& lo, const float4& hi) {
-  acc[0] = fmaf(x, lo.x, acc[0]);
-  acc[1] = fmaf(x, lo.y, acc[1]);
-  acc[2] = fmaf(x, lo.z, acc[2]);
-  acc[3] = fmaf(x, lo.w, acc[3]);
-  acc[4] = fmaf(x, hi.x, acc[4]);
-  acc[5] = fmaf(x, hi.y, acc[5]);
-  acc[6] = fmaf(x, hi.z, acc[6]);
-  acc[7] = fmaf(x, hi.w, acc[7]);
+// Index (in bf16) of window pixel (r, c), c in [0, IC).
+__device__ __forceinline__ int window_index(int r, int c) {
+  return ((r * 2 + (c & 1)) * PC + (c >> 1)) * IN_STRIDE;
 }
 
-// K2[b] (64, 289) bf16 -> s_w [KT][CO] f32 and s_bias [CO] f32.
+// K2[b] (64, 289) bf16 -> s_w [CO][W_STRIDE] bf16 and s_bias [CO] f32. K2's
+// rows are 578 bytes apart, so they are copied value by value.
 template <int THREADS>
-__device__ __forceinline__ void stage_k2(const __nv_bfloat16* __restrict__ kb, float* s_w,
+__device__ __forceinline__ void stage_k2(const __nv_bfloat16* __restrict__ kb, __nv_bfloat16* s_w,
                                          float* s_bias, int tid) {
   for (int i = tid; i < CO * KW; i += THREADS) {
     const int o = i / KW;
     const int k = i % KW;
-    const float v = __bfloat162float(kb[i]);
+    const __nv_bfloat16 v = kb[i];
     if (k < KT)
-      s_w[k * CO + o] = v;
+      s_w[o * W_STRIDE + k] = v;
     else
-      s_bias[o] = v;
+      s_bias[o] = __bfloat162float(v);
   }
 }
 
-// The tile's window of a1[b] (H, W, 32) from device memory, rows from iy0 and
-// columns from ix0; pixels outside the image are zero.
-template <int TR>
-__device__ __forceinline__ void stage_window(const __nv_bfloat16* __restrict__ ab,
-                                             __nv_bfloat16* s_in, int H, int W, int iy0, int ix0,
-                                             int tid) {
-  for (int i = tid; i < Tile<TR>::IR * IC * 4; i += Tile<TR>::THREADS) {
-    const int q = i % 4;
-    const int p = i / 4;
-    const int gy = iy0 + p / IC;
-    const int gx = ix0 + p % IC;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (gy >= 0 && gy < H && gx >= 0 && gx < W)
-      v = reinterpret_cast<const uint4*>(ab + (static_cast<size_t>(gy) * W + gx) * CI)[q];
-    uint2* dst = reinterpret_cast<uint2*>(s_in + p * IN_STRIDE + q * 8);
-    dst[0] = make_uint2(v.x, v.y);
-    dst[1] = make_uint2(v.z, v.w);
+// Starts the copies of a tile's window of a1[b] (H, W, 32) from device memory,
+// rows from iy0 and columns from ix0; pixels outside the image become zero.
+// The caller commits and waits for the cp.async group.
+template <int THREADS>
+__device__ __forceinline__ void load_window(const __nv_bfloat16* __restrict__ ab,
+                                            __nv_bfloat16* s_in, int H, int W, int iy0, int ix0,
+                                            int tid) {
+  for (int i = tid; i < IR * IC * (CI / 8); i += THREADS) {
+    const int q = i % (CI / 8);
+    const int p = i / (CI / 8);
+    const int r = p / IC;
+    const int c = p % IC;
+    const int gy = iy0 + r;
+    const int gx = ix0 + c;
+    const bool ok = gy >= 0 && gy < H && gx >= 0 && gx < W;
+    const __nv_bfloat16* src = ok ? ab + (static_cast<size_t>(gy) * W + gx) * CI + 8 * q : ab;
+    cp_async16(smem_u32(s_in + window_index(r, c) + 8 * q), src, ok);
   }
 }
 
-// acc += the nine taps of the staged window, for the thread's 4 pixels x 8 channels.
-template <int TR>
-__device__ __forceinline__ void tile_fma(const __nv_bfloat16* s_in, const float* s_w,
-                                         const Lane& t, float (&acc)[PX][8]) {
-#pragma unroll 1
+// acc += the nine taps of the staged window for the warp's tile rows
+// [row0, row0 + RW), all 16 columns and 64 channels. acc[i][nt] is mma's
+// m16n8 fragment of row row0 + i and channels [8 nt, 8 nt + 8).
+template <int RW>
+__device__ __forceinline__ void tile_mma(const __nv_bfloat16* s_in, const __nv_bfloat16* s_w,
+                                         int row0, int lane, float (&acc)[RW][CO / 8][4]) {
+  // A: lane l addresses output column l % 16 of a row, 8 channels further along
+  // for lanes 16..31. B: lane l addresses channel out l % 8 + 8 (l / 16) of a
+  // block of 16, 8 taps further along for lanes 8..15 and 24..31.
+  const uint32_t a_base = smem_u32(s_in + window_index(2 * row0, 0) + (lane % 16) * IN_STRIDE +
+                                   8 * (lane / 16));
+  const uint32_t b_base =
+      smem_u32(s_w + (lane % 8 + 8 * (lane / 16)) * W_STRIDE + 8 * ((lane / 8) % 2));
+#pragma unroll
   for (int tap = 0; tap < 9; ++tap) {
     const int ki = tap / 3;
     const int kj = tap % 3;
-    const __nv_bfloat16* src[PX];
 #pragma unroll
-    for (int j = 0; j < PX; ++j)
-      src[j] = s_in + ((2 * (t.pr + Tile<TR>::ROW_STEP * j) + ki) * IC + 2 * t.pc + kj) * IN_STRIDE;
-    const float* wt = s_w + tap * CI * CO + t.cg * 4;
-#pragma unroll 4
-    for (int c = 0; c < CI; c += 2) {
-      const float4 lo0 = *reinterpret_cast<const float4*>(wt + c * CO);
-      const float4 hi0 = *reinterpret_cast<const float4*>(wt + c * CO + 32);
-      const float4 lo1 = *reinterpret_cast<const float4*>(wt + (c + 1) * CO);
-      const float4 hi1 = *reinterpret_cast<const float4*>(wt + (c + 1) * CO + 32);
+    for (int ks = 0; ks < CI / 16; ++ks) {
+      uint32_t a[RW][4];
+      uint32_t bq[CO / 16][4];
 #pragma unroll
-      for (int j = 0; j < PX; ++j) {
-        const float2 xv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(src[j] + c));
-        fma8(acc[j], xv.x, lo0, hi0);
-        fma8(acc[j], xv.y, lo1, hi1);
-      }
+      for (int i = 0; i < RW; ++i)
+        ldmatrix_x4(a[i], a_base + 2 * (window_index(2 * i + ki, kj) + 16 * ks));
+#pragma unroll
+      for (int j = 0; j < CO / 16; ++j)
+        ldmatrix_x4(bq[j], b_base + 2 * (16 * j * W_STRIDE + tap * CI + 16 * ks));
+#pragma unroll
+      for (int i = 0; i < RW; ++i)
+#pragma unroll
+        for (int nt = 0; nt < CO / 8; ++nt)
+          mma_bf16(acc[i][nt], a[i], bq[nt / 2][2 * (nt % 2)], bq[nt / 2][2 * (nt % 2) + 1]);
     }
   }
 }
 
-// The thread's pixels of the tile at (oy0, ox0) into out[b] of (B, Ho, Wo, 64):
-// SiLU(acc + bias) when ACTIVATE, else acc as it is; one rounding to bf16.
-template <int TR, bool ACTIVATE>
-__device__ __forceinline__ void tile_store(const float (&acc)[PX][8], const float* s_bias,
-                                           const Lane& t, __nv_bfloat16* __restrict__ out, int b,
-                                           int Ho, int Wo, int oy0, int ox0) {
+// The warp's rows of the tile at (oy0, ox0) into out[b] of (B, Ho, Wo, 64):
+// SiLU(acc + bias) when ACTIVATE, else acc as it is; one rounding to bf16. The
+// values leave straight from the accumulator layout, 4 bytes per thread and 16
+// contiguous bytes per pixel and instruction. (Staging them through shared
+// memory for 16-byte stores halved the time of the bare store and made the
+// whole kernel a quarter slower on an H100: the stores then start only after
+// the last SiLU instead of between them.)
+template <int RW, bool ACTIVATE>
+__device__ __forceinline__ void tile_store(const float (&acc)[RW][CO / 8][4], const float* s_bias,
+                                           int row0, int lane, __nv_bfloat16* __restrict__ out,
+                                           int b, int Ho, int Wo, int oy0, int ox0) {
+  const int cl = 2 * (lane % 4);
 #pragma unroll
-  for (int j = 0; j < PX; ++j) {
-    const int oy = oy0 + t.pr + Tile<TR>::ROW_STEP * j;
-    const int ox = ox0 + t.pc;
-    if (oy >= Ho || ox >= Wo) continue;
-    float v[8];
+  for (int i = 0; i < RW; ++i) {
+    const int oy = oy0 + row0 + i;
 #pragma unroll
-    for (int o = 0; o < 4; ++o) {
-      if (ACTIVATE) {
-        v[o] = silu(acc[j][o] + s_bias[4 * t.cg + o]);
-        v[4 + o] = silu(acc[j][4 + o] + s_bias[32 + 4 * t.cg + o]);
-      } else {
-        v[o] = acc[j][o];
-        v[4 + o] = acc[j][4 + o];
+    for (int half = 0; half < 2; ++half) {
+      const int ox = ox0 + lane / 4 + 8 * half;
+      if (oy >= Ho || ox >= Wo) continue;
+      __nv_bfloat16* dst = out + ((static_cast<size_t>(b) * Ho + oy) * Wo + ox) * CO + cl;
+#pragma unroll
+      for (int nt = 0; nt < CO / 8; ++nt) {
+        float v0 = acc[i][nt][2 * half];
+        float v1 = acc[i][nt][2 * half + 1];
+        if (ACTIVATE) {
+          v0 = silu_fast(v0 + s_bias[8 * nt + cl]);
+          v1 = silu_fast(v1 + s_bias[8 * nt + cl + 1]);
+        }
+        *reinterpret_cast<uint32_t*>(dst + 8 * nt) = pack_bf16x2(v0, v1);
       }
     }
-    __nv_bfloat16* dst = out + ((static_cast<size_t>(b) * Ho + oy) * Wo + ox) * CO + 4 * t.cg;
-    *reinterpret_cast<uint2*>(dst) = make_uint2(pack_bf16x2(v[0], v[1]), pack_bf16x2(v[2], v[3]));
-    *reinterpret_cast<uint2*>(dst + 32) =
-        make_uint2(pack_bf16x2(v[4], v[5]), pack_bf16x2(v[6], v[7]));
   }
 }
 

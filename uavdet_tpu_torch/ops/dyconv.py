@@ -23,7 +23,8 @@ x only. Two options of the same kernel:
 
 ``dyconv`` dispatches on the device of ``x``: a CPU tensor takes the plain
 PyTorch version ``dyconv_plain``, a CUDA tensor launches the kernel
-(``csrc/dyconv.cu``), anything else raises.
+(``csrc/dyconv.cu``: a wgmma implicit GEMM on tiles of 256 pixels x 128
+channels), anything else raises.
 """
 
 import torch
@@ -32,6 +33,21 @@ import torch.nn.functional as F
 from .. import kernels
 
 _BF16 = torch.bfloat16
+
+# Shapes (B, H, W, C, Co) at the edges of kernel D's tiling: tiles of 16 x 16
+# pixels, K chunks of 16 input channels, N tiles of 64 output channels where
+# Co <= 64 and of 128 otherwise. The CPU tests hold the plain version against
+# a float64 conv at these shapes, the smoke test the kernel against the plain
+# version on the card.
+EDGE_SHAPES = (
+    (2, 37, 50, 24, 40),     # ragged tiles both ways, 1.5 chunks, part of an N tile of 64
+    (1, 5, 19, 72, 136),     # under one tile row, 4.5 chunks, 128 + 8 channels
+    (2, 33, 47, 40, 8),      # one row past two tiles, 2.5 chunks, Co = 8
+    (1, 16, 32, 16, 64),     # whole tiles, one chunk, a whole N tile of 64
+    (1, 18, 16, 8, 72),      # half a chunk; 72 channels take the N tile of 128
+    (1, 32, 18, 48, 264),    # two columns past a tile; two N tiles of 128 and 8 more
+    (1, 24, 24, 128, 256),   # 1.5 tiles each way, at widths the TPU kernel takes too
+)
 
 
 def mixed_kernel(stacked_kernel: torch.Tensor, attn: torch.Tensor,

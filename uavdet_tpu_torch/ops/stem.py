@@ -147,8 +147,22 @@ def _stem_l1_cuda(x: torch.Tensor, k1: torch.Tensor):
     return a1, partial.sum(dim=1)
 
 
+# Shapes (B, H, W) of a1 at the edges of kernel B's tiling: a tile is 16 x 16
+# output pixels, 33 x 33 of a1; with an odd H or W the last output row or
+# column reads the image's last pixel as its centre tap. The CPU tests hold
+# the plain version against a float64 conv at these shapes, the smoke test
+# the kernel against the plain version on the card.
+L2_EDGE_SHAPES = (
+    (1, 1, 1),        # one pixel: every tap but the centre is padding
+    (2, 9, 13),       # odd both ways, under one tile
+    (1, 33, 35),      # one output row and two columns past a tile
+    (1, 31, 65),      # a row short of a tile; one column past two tiles
+    (2, 64, 30),      # two tiles of rows, a column short of one
+    (1, 48, 128),     # 1.5 x 4 tiles, a shape the TPU kernel takes too
+)
+
 # Kernel B's stage ladder: each stage adds one step to the one before it.
-L2_STAGES = ("store", "+k2", "+window", "+fma", "full")
+L2_STAGES = ("store", "+k2", "+window", "+mma", "full")
 
 
 def _stem_l2_cuda(a1: torch.Tensor, k2: torch.Tensor,

@@ -8,15 +8,16 @@ work), and each variant is timed with CUDA events. The ladder is the one
 ``csrc/stem_l2.cu`` has on this card, cumulative:
 
   0 store     write the output tiles only
-  1 +k2       + stage K2[b] in shared memory as f32
-  2 +window   + stage each tile's 17 x 33 x 32 input window
-  3 +fma      + the tap loop on the CUDA cores
+  1 +k2       + stage K2[b] in shared memory as bf16
+  2 +window   + each tile's 33 x 33 x 32 input window, copied with cp.async
+              into one of two buffers while the tile before it is in work
+  3 +mma      + the tap loop on the tensor cores (mma.sync m16n8k16)
   4 full      + bias, SiLU: kernel B itself
 
 The TPU harness's roll, selection-matmul and quad-parity stages time layout
 steps of Mosaic that this kernel does not have. The first line printed is
 the card's name and power limit; a "program" in the per-program time is one
-8 x 16 output tile.
+16 x 16 output tile.
 
 Usage: python3 -m uavdet_tpu_torch.scripts.l2_ablate [--batch 16]
        [--input 640] [--iters 30] [--stages 3,full]
@@ -57,11 +58,11 @@ def main(argv=None) -> int:
         (rng.normal(size=(b, 64, 289)) * 0.05).astype(np.float32)
     ).to("cuda", torch.bfloat16)
     half = (s + 1) // 2
-    n_prog = b * -(-half // 8) * -(-half // 16)
+    n_prog = b * -(-half // 16) * -(-half // 16)
 
     names = {"store": "store floor", "+k2": "+K2[b] staged in shared memory",
-             "+window": "+input window staged per tile",
-             "+fma": "+tap loop (CUDA cores)",
+             "+window": "+input windows, double-buffered cp.async",
+             "+mma": "+tap loop (tensor cores)",
              "full": "FULL (bias + SiLU epilogue)"}
     stages = list(enumerate(L2_STAGES))
     if args.stages:
