@@ -13,12 +13,18 @@ nor PyYAML. The phases, in order:
   1. builds the seven CUDA kernels from ``uavdet_tpu_torch/csrc`` (nvcc,
      sm_90a, one nvcc per source, all at once);
   2. kernel A (stem L1) against its plain version, on uint8 frames
-     (16, 640, 640, 3) and on bf16 frames of an odd shape;
+     (16, 640, 640, 3), on bf16 frames of an odd shape, and on uint8 and
+     bf16 frames at the shapes of ``ops.stem.L1_EDGE_SHAPES`` (sizes that
+     straddle its 16 x 64 block tile and a warp's 16-pixel fragment):
+     output and channel sums, and two launches' sums bitwise equal;
   3. kernel B (stem L2) against its plain version at (16, 640, 640, 32) and
      at the shapes of ``ops.stem.L2_EDGE_SHAPES`` (odd H and W, sizes that
      straddle its 16 x 16 output tile);
   4. the NMS kernel against its plain version at (16, 512) boxes with
-     duplicates, equal scores, zero-area boxes and -inf padding: bitwise;
+     duplicates, equal scores, zero-area boxes and -inf padding, and at the
+     cases of ``ops.nms.NMS_EDGE_CASES`` (1 to 1024 boxes, sizes off the
+     64-rank mask word and the 8 blocks of a cluster, all boxes identical,
+     no two overlapping): bitwise;
   5. kernel D (dyconv) against its plain version: the shapes of
      ``ops.dyconv.EDGE_SHAPES`` (sizes that straddle its 16 x 16 pixel
      tile, its chunks of 16 input channels and its N tiles of 64 and 128
@@ -72,6 +78,11 @@ nor PyYAML. The phases, in order:
      least time the card could take (``bound_ms``: bytes over 3.35 TB/s or
      operations over the peak rate of their type, whichever is larger);
      kernel D also on all-zero operands (what the power limit costs it);
+     every kernel also as the mean of back-to-back launches
+     (``back_to_back_ms``: one launch between two events also counts the
+     host's time to launch it, which is most of a 30 us kernel's reading);
+     the NMS kernel also at (1, 512), its two phases by the card's global
+     timer, and an empty launch of its grid;
   9. a ``torch.profiler`` window of each detector: device time by kernel.
 
 No detector path may launch kernel E, F or G: their paths are the op and
@@ -86,6 +97,8 @@ import json
 import sys
 import time
 import traceback
+
+import numpy as np
 
 BATCH, SIZE, REQUESTS = 16, 640, 3
 DUAL_BATCH, RGB_HW, IR_HW = 8, (1080, 1920), (512, 640)   # per modality
@@ -170,6 +183,12 @@ def cuda_ms(fn, iters: int = ITERS, warmup: int = WARMUP) -> float:
     """Median device time of one call, by CUDA events, after warm-up."""
     from uavdet_tpu_torch.utils.timing import cuda_ms as timed
     return timed(fn, iters, warmup)
+
+
+def back_to_back_ms(fn, iters: int = ITERS) -> float:
+    """Mean device time of one call among ``iters`` launched back to back."""
+    from uavdet_tpu_torch.utils.timing import back_to_back_ms as timed
+    return timed(fn, iters, 1)
 
 
 def nbytes(*tensors) -> int:
@@ -387,9 +406,12 @@ def main() -> int:
     from uavdet_tpu_torch.ops.dyconv import (EDGE_SHAPES, dyconv,
                                              dyconv_plain, parity_sums,
                                              rfold)
-    from uavdet_tpu_torch.ops.nms import (batched_nms, nms_alive,
-                                          nms_alive_plain)
-    from uavdet_tpu_torch.ops.stem import (L2_EDGE_SHAPES, L2_STAGES,
+    from uavdet_tpu_torch.ops.nms import (NMS_EDGE_CASES, batched_nms,
+                                          nms_alive, nms_alive_plain,
+                                          nms_edge_case, nms_empty_launch,
+                                          nms_phase_ms)
+    from uavdet_tpu_torch.ops.stem import (L1_EDGE_SHAPES, L2_EDGE_SHAPES,
+                                           L2_STAGES,
                                            detector_stem_fast_path,
                                            fused_stem_forward, stem_fused,
                                            stem_fused_plain, stem_l1,
@@ -426,6 +448,15 @@ def main() -> int:
                            device=dev, generator=gen)
     inputs = {}
 
+    def sums_close(name, got, want, rtol):
+        # sums of ~10^5 stored values: a bf16 ulp that falls the other way
+        # moves a sum by 2^-8 of one value, so the error is held against the
+        # largest sum, not against each (possibly cancelling) one
+        err = float((got - want).abs().max())
+        top = float(want.abs().max())
+        smoke.check(name, err <= rtol * top, f"max_abs_err {err:.6g} of "
+                    f"{top:.6g} (rtol {rtol} of the largest sum)")
+
     @torch.inference_mode()
     def kernel_a():
         k1 = stem_l1_weights(frames, dy0, temp)
@@ -455,6 +486,23 @@ def main() -> int:
         k2 = stem_l2_weights(sums, 97 * 161, dy1, temp)
         compare_bf16(smoke, "stem_l2 (2,97,161,32) -> (2,49,81,64)",
                      stem_l2(a1, k2), stem_l2_plain(a1, k2))
+        for b, h, w in L1_EDGE_SHAPES:
+            u8 = torch.randint(0, 256, (b, h, w, 3), dtype=torch.uint8,
+                               device=dev, generator=gen)
+            for x in (u8, (u8.float() / 255.0).to(torch.bfloat16)):
+                k1 = 0.3 * torch.randn((b, 32, 28), generator=gen, device=dev)
+                if x.dtype == torch.uint8:   # /255 folded into the taps
+                    k1[..., :27] /= 255.0
+                label = f"stem_l1 edge {tuple(x.shape)} {x.dtype}"
+                a1, sums = stem_l1(x, k1)
+                a1_p, sums_p = stem_l1_plain(x, k1)
+                compare_bf16(smoke, label, a1, a1_p)
+                sums_close(f"{label} sums", sums, sums_p, 1e-3)
+                again, sums_again = stem_l1(x, k1)
+                smoke.check(f"{label} twice on the same input",
+                            torch.equal(again, a1)
+                            and torch.equal(sums_again, sums),
+                            "output and sums bitwise equal")
 
     @torch.inference_mode()
     def kernel_b():
@@ -490,6 +538,22 @@ def main() -> int:
         same = all(torch.equal(g, w) for g, w in zip(got, want))
         smoke.check("batched_nms keep_idx/alive/order bitwise", same, "")
         inputs["nms"] = boxes_s
+        rng = np.random.default_rng(SEED)
+        for kind, b, n in NMS_EDGE_CASES:
+            eb, es = (torch.from_numpy(a).to(dev)
+                      for a in nms_edge_case(kind, b, n, rng))
+            order = torch.argsort(-es, dim=1, stable=True)
+            eb_s = torch.gather(eb, 1, order[..., None].expand(-1, -1, 4))
+            got, want = nms_alive(eb_s, 0.5), nms_alive_plain(eb_s, 0.5)
+            diff = int((got != want).sum())
+            keep = batched_nms(eb, es, 0.5, min(n, 300))
+            keep_p = batched_nms(eb, es, 0.5, min(n, 300),
+                                 alive_fn=nms_alive_plain)
+            same = all(torch.equal(g, w) for g, w in zip(keep, keep_p))
+            smoke.check(f"nms edge {kind} ({b}, {n}) bitwise",
+                        diff == 0 and same, f"{diff} of {got.numel()} differ; "
+                        f"{int(got.sum())} survivors; batched_nms equal "
+                        f"{same}")
         # csrc/nms.cu: 5 f32 operations per box area, 14 per IoU of a pair
         # (i, j > i): 4 min/max, 2 differences, 2 clamps, 1 product, the
         # union's sum and difference, its clamp, the quotient, the compare
@@ -514,15 +578,6 @@ def main() -> int:
     soem_frames = torch.randint(0, 256, (SOEM_BATCH, SOEM_SIZE, SOEM_SIZE, 3),
                                 dtype=torch.uint8, device=dev, generator=gen)
     sites = []   # (x, k, mul, add, emit_gap) as each SOEM site calls kernel D
-
-    def sums_close(name, got, want, rtol):
-        # sums of ~10^5 stored values: a bf16 ulp that falls the other way
-        # moves a sum by 2^-8 of one value, so the error is held against the
-        # largest sum, not against each (possibly cancelling) one
-        err = float((got - want).abs().max())
-        top = float(want.abs().max())
-        smoke.check(name, err <= rtol * top, f"max_abs_err {err:.6g} of "
-                    f"{top:.6g} (rtol {rtol} of the largest sum)")
 
     def check_dyconv(label, x, k, mul, add, fold: bool):
         want, want_sums = dyconv_plain(x, k, mul, add, emit_gap=True)
@@ -856,11 +911,12 @@ def main() -> int:
         k2 = cuda_ms(kern, iters, warmup)
         p2 = cuda_ms(plain, plain_iters, plain_warmup)
         lib_ms = None if lib is None else cuda_ms(lib, iters, warmup)
-        print(f"{name}: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / "
-              f"{p2:.4f} ms, library "
+        burst = back_to_back_ms(kern, iters)
+        print(f"{name}: kernel {k1:.4f} / {k2:.4f} ms ({burst:.4f} back to "
+              f"back), plain {p1:.4f} / {p2:.4f} ms, library "
               f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'} {tag}")
         return {"ms": min(k1, k2), "plain_ms": min(p1, p2),
-                "library_ms": lib_ms}
+                "library_ms": lib_ms, "back_to_back_ms": burst}
 
     @torch.inference_mode()
     def timing():
@@ -915,6 +971,32 @@ def main() -> int:
         smoke.stats["nms"].update(time_pair(
             "nms", lambda: nms_alive(boxes_s, 0.5),
             lambda: nms_alive_plain(boxes_s, 0.5), None))
+        one = boxes_s[:1].contiguous()   # BaselineModel's launch
+        extra = {
+            "ms_batch_1": cuda_ms(lambda: nms_alive(one, 0.5)),
+            "back_to_back_ms_batch_1": back_to_back_ms(
+                lambda: nms_alive(one, 0.5), 200),
+            "back_to_back_ms": back_to_back_ms(
+                lambda: nms_alive(boxes_s, 0.5), 200),
+            "empty_launch_ms": cuda_ms(lambda: nms_empty_launch(BATCH)),
+            "empty_launch_ms_batch_1": cuda_ms(
+                lambda: nms_empty_launch(1)),
+            "no_launch_ms": cuda_ms(lambda: None),
+        }
+        for key, boxes in (("phase_ms", boxes_s), ("phase_ms_batch_1", one)):
+            pairs = [nms_phase_ms(boxes, 0.5) for _ in range(5)]
+            extra[key] = [sorted(v)[2] for v in zip(*pairs)]
+        smoke.stats["nms"].update(extra)
+        print(f"  nms at (1, {NMS_N}): {extra['ms_batch_1']:.4f} ms "
+              f"({extra['back_to_back_ms_batch_1']:.4f} back to back); at "
+              f"({BATCH}, {NMS_N}) {extra['back_to_back_ms']:.4f} back to "
+              f"back of 200; an empty launch of the same grid "
+              f"{extra['empty_launch_ms']:.4f} / "
+              f"{extra['empty_launch_ms_batch_1']:.4f} ms, two events with "
+              f"nothing between them {extra['no_launch_ms']:.4f} ms; inside "
+              f"the kernel, by the card's global timer: pair mask, walk "
+              f"{extra['phase_ms']} ms at {BATCH} images, "
+              f"{extra['phase_ms_batch_1']} ms at 1 {tag}")
         total = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
         per_site = []
         for i, (x, k, mul, add, emit) in enumerate(sites):
@@ -978,9 +1060,11 @@ def main() -> int:
         print(f"profile {name}: {batches} batches, device busy "
               f"{busy_us / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms, idle share "
               f"{1 - busy_us / wall_us:.3f} {tag}")
-        for t, n, key in rows[:20]:
-            print(f"  {t / batches / 1e3:9.4f} ms/batch {n // batches:5d} "
-                  f"calls/batch {key[:150]}")
+        # the 20 largest, and the port's own kernels wherever they stand
+        for i, (t, n, key) in enumerate(rows):
+            if i < 20 or "(anonymous namespace)::" in key:
+                print(f"  {t / batches / 1e3:9.4f} ms/batch {n // batches:5d} "
+                      f"calls/batch {key[:150]}")
 
     print("== 9 profile (informational)", flush=True)
     for args in (("DyYOLO", lambda: detect(frames), 3),

@@ -157,6 +157,7 @@ def test_port_imports_no_jax():
             "import uavdet_tpu_torch.utils.timing\n"
             "import uavdet_tpu_torch.scripts.l2_ablate\n"
             "import uavdet_tpu_torch.scripts.block_ablate\n"
+            "import uavdet_tpu_torch.scripts.kernel_probe\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'uavdet_tpu', 'yaml')]\n"
             "assert not bad, bad\n"

@@ -21,7 +21,9 @@ from uavdet_tpu.ops.pallas_stem import mix_and_fold as jax_mix_and_fold
 from uavdet_tpu.ops.pallas_stem_split import fused_stem_forward as jax_stem
 from uavdet_tpu.ops.pallas_stem_split import pallas_l1, pallas_l2
 from uavdet_tpu_torch.models import DyYOLO
-from uavdet_tpu_torch.ops.stem import (L2_EDGE_SHAPES, _stem_l2_cuda,
+from uavdet_tpu_torch import kernels
+from uavdet_tpu_torch.ops.stem import (L1_EDGE_SHAPES, L2_EDGE_SHAPES,
+                                       _stem_l1_cuda, _stem_l2_cuda,
                                        fused_stem_forward, mix_and_fold,
                                        stem_l1, stem_l1_plain, stem_l2,
                                        stem_l2_plain)
@@ -31,6 +33,9 @@ CFG = (("DyConv", 32, 3, 1), ("DyConv", 64, 3, 2), ("B", 1), ("S",))
 RTOL, ATOL, MIN_EQUAL = 1.6e-2, 1e-2, 0.999
 # the edge shapes the TPU kernel takes as well: H a multiple of 16
 TPU_L2_EDGE_SHAPES = tuple(s for s in L2_EDGE_SHAPES
+                           if s[1] % 16 == 0 and s[2] % 128 == 0)
+# kernel A's: the TPU kernel takes even H and W (the stem gate's rule)
+TPU_L1_EDGE_SHAPES = tuple(s for s in L1_EDGE_SHAPES
                            if s[1] % 16 == 0 and s[2] % 128 == 0)
 
 
@@ -246,3 +251,93 @@ def test_kernel_b_wrapper_rules():
         _stem_l2_cuda(a1[..., :16], k2)
     with pytest.raises(ValueError, match="k2"):
         _stem_l2_cuda(a1, k2[:, :, :288])
+
+
+def test_l1_edge_shapes_straddle_the_kernel_tile():
+    """The tuple the smoke test also reads: sizes on both sides of kernel
+    A's 16 x 64 block tile and of a warp's 16-pixel fragment."""
+    assert any(h % 2 and w % 2 for _, h, w in L1_EDGE_SHAPES)
+    assert (1, 1, 1) in L1_EDGE_SHAPES
+    assert any(h < 16 and w < 64 for _, h, w in L1_EDGE_SHAPES)
+    assert any(h % 16 == 1 and w % 64 == 1 for _, h, w in L1_EDGE_SHAPES)
+    assert any(h % 16 == 15 and w % 64 == 63 for _, h, w in L1_EDGE_SHAPES)
+    assert any(w % 16 == 8 for _, _, w in L1_EDGE_SHAPES)
+    assert any(h > 16 and h % 16 == 0 for _, h, _ in L1_EDGE_SHAPES)
+    assert TPU_L1_EDGE_SHAPES
+
+
+@pytest.mark.parametrize("uint8", [True, False])
+@pytest.mark.parametrize("shape", L1_EDGE_SHAPES)
+def test_kernel_a_plain_edge_shapes_match_numpy(rng, shape, uint8):
+    """Kernel A's plain version at the edges of the CUDA kernel's tiling,
+    against a float64 conv of the same bf16 operands: zero padding on the
+    frame only; the channel sums are those of the stored bf16 values, held
+    to 1e-3 of the largest."""
+    b, h, w = shape
+    x = _frames(rng, (b, h, w, 3), uint8)
+    k1 = (rng.normal(size=(b, 32, 28)) * 0.3).astype(np.float32)
+    if uint8:   # /255 folded into the tap columns, as stem_l1_weights does
+        k1[..., :27] /= 255.0
+    a1, sums = stem_l1(torch.from_numpy(x), torch.from_numpy(k1))
+    assert a1.shape == (b, h, w, 32) and a1.dtype == torch.bfloat16
+    assert sums.shape == (b, 32) and sums.dtype == torch.float32
+    xq = torch.from_numpy(x.astype(np.float32)).to(
+        torch.bfloat16).double().numpy()
+    kq = torch.from_numpy(k1).to(torch.bfloat16).double().numpy()
+    xp = np.pad(xq, ((0, 0), (1, 1), (1, 1), (0, 0)))
+    patches = np.stack([xp[:, ki:ki + h, kj:kj + w, c]
+                        for ki in range(3) for kj in range(3)
+                        for c in range(3)], axis=-1)      # (b, h, w, 27)
+    acc = np.einsum("bhwt,bot->bhwo", patches, kq[..., :27]) \
+        + kq[:, None, None, :, 27]
+    want = acc / (1.0 + np.exp(-acc))
+    np.testing.assert_allclose(a1.float().numpy(), want, rtol=RTOL,
+                               atol=ATOL)
+    want_sums = want.sum(axis=(1, 2))
+    assert np.abs(sums.numpy() - want_sums).max() \
+        <= 1e-3 * max(np.abs(want_sums).max(), 1.0)
+    np.testing.assert_allclose(sums.numpy(),
+                               a1.double().sum(dim=(1, 2)).numpy(),
+                               rtol=1e-6)
+
+
+@pytest.mark.parametrize("uint8", [True, False])
+@pytest.mark.parametrize("shape", TPU_L1_EDGE_SHAPES)
+def test_kernel_a_plain_edge_shapes_match_pallas_l1(rng, shape, uint8):
+    """Where the TPU kernel takes the shape: ``pallas_l1`` in interpret
+    mode, its four parity banks put back together."""
+    b, h, w = shape
+    x = _frames(rng, (b, h, w, 3), uint8)
+    k1 = (rng.normal(size=(b, 32, 28)) * 0.05).astype(np.float32)
+    banks, sums = pallas_l1(jnp.asarray(x), jnp.asarray(k1), interpret=True)
+    want = np.zeros((b, h, w, 32), np.float32)
+    for q, bank in enumerate(banks):
+        rp, cp = divmod(q, 2)
+        want[:, rp::2, cp::2] = np.asarray(
+            bank, np.float32)[:, :, :h // 2, :w // 2].transpose(0, 2, 3, 1)
+    a1, got_sums = stem_l1_plain(torch.from_numpy(x), torch.from_numpy(k1))
+    _assert_bf16_close(a1.float().numpy(), want)
+    np.testing.assert_allclose(got_sums.numpy(), np.asarray(sums),
+                               rtol=1e-4, atol=1e-3)
+
+
+def test_kernel_a_wrapper_rules(rng):
+    """The kernel's wrapper raises before any launch on shapes and types
+    the kernel does not take, whatever the device; a CPU tensor goes to the
+    plain version and launches nothing."""
+    x = torch.zeros((2, 8, 8, 3), dtype=torch.uint8)
+    k1 = torch.zeros((2, 32, 28))
+    with pytest.raises(ValueError, match="x"):
+        _stem_l1_cuda(torch.zeros((2, 8, 8, 4), dtype=torch.uint8), k1)
+    with pytest.raises(ValueError, match="x"):
+        _stem_l1_cuda(x.to(torch.int32), k1)
+    with pytest.raises(ValueError, match="k1"):
+        _stem_l1_cuda(x, k1[:1])
+    with pytest.raises(ValueError, match="k1"):
+        _stem_l1_cuda(x, k1[:, :, :27])
+    with pytest.raises(ValueError, match="k1"):
+        _stem_l1_cuda(x, k1.double())
+    before = kernels.launch_counts()
+    a1, sums = stem_l1(x, k1)
+    assert a1.device.type == "cpu" and sums.device.type == "cpu"
+    assert kernels.launch_counts() == before

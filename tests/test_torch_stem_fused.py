@@ -19,9 +19,10 @@ import jax.numpy as jnp
 
 from uavdet_tpu.ops.pallas_stem import mix_and_fold as jax_mix_and_fold
 from uavdet_tpu.ops.pallas_stem import pallas_dyconv_stem
-from uavdet_tpu_torch.ops.stem import (L2_STAGES, stem_fused,
-                                       stem_fused_plain, stem_l1, stem_l2,
-                                       stem_l2_plain, stem_l2_stage)
+from uavdet_tpu_torch.ops.stem import (L1_EDGE_SHAPES, L2_STAGES, stem_fused,
+                                       stem_fused_plain, stem_l1,
+                                       stem_l1_plain, stem_l2, stem_l2_plain,
+                                       stem_l2_stage)
 
 RTOL, ATOL, MIN_EQUAL = 1.6e-2, 1e-2, 0.99
 
@@ -159,3 +160,24 @@ def test_stem_fused_plain_odd_shapes_match_numpy(rng, b, h, w):
     # a first-layer value that rounds the other way moves a second-layer
     # sum by 2^-8 of one product: far inside the store's tolerance
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("shape", L1_EDGE_SHAPES)
+def test_stem_fused_plain_is_plain_b_of_plain_a_at_l1_edge_shapes(rng, shape):
+    """At the edges of kernel A's tiling the fused op's plain version is
+    kernel B's plain version of kernel A's, bitwise, uint8 frames with /255
+    folded into K1: the identity the card holds the fused kernel to."""
+    b, h, w = shape
+    x = torch.from_numpy((rng.uniform(size=(b, h, w, 3)) * 255).astype(
+        np.uint8))
+    k1 = torch.from_numpy(rng.normal(size=(b, 32, 28)).astype(np.float32))
+    k1 = torch.cat([k1[..., :-1] * (0.3 / 255.0), k1[..., -1:] * 0.3], dim=-1)
+    k2 = torch.from_numpy(
+        (rng.normal(size=(b, 64, 289)) * 0.05).astype(np.float32))
+    got = stem_fused_plain(x, k1, k2)
+    a1, _ = stem_l1_plain(x, k1)
+    assert got.shape == (b, (h + 1) // 2, (w + 1) // 2, 64)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, stem_l2_plain(a1, k2))
+    assert torch.equal(got, stem_fused(x, k1, k2))
+    assert torch.isfinite(got.float()).all() and bool((got != 0).any())

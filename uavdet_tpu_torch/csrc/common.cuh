@@ -15,18 +15,12 @@
 
 namespace uavdet {
 
-__device__ __forceinline__ float to_f32(uint8_t v) { return static_cast<float>(v); }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-// SiLU in f32, as the TPU kernels compute it before the bf16 store.
-__device__ __forceinline__ float silu(float v) { return v / (1.0f + expf(-v)); }
-
-// The same on the special-function unit: v / (1 + 2^(-v log2 e)) with
+// SiLU in f32 on the special-function unit: v / (1 + 2^(-v log2 e)) with
 // ex2.approx and rcp.approx (about two units in the last place of f32 each, and
 // results below 2^-126 flushed to zero): far inside the bf16 store's half unit,
-// and five instructions where the exact form takes some thirty, for epilogues
-// that are not hidden under other work. A kernel's output bits depend on which
-// of the two it uses.
+// and five instructions where expf and a true division take some thirty. Every
+// kernel that applies SiLU uses this one form; a kernel's output bits depend on
+// it.
 __device__ __forceinline__ float silu_fast(float v) {
   float e, r;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(e) : "f"(v * -1.4426950408889634f));

@@ -17,115 +17,115 @@
 // product answer Mosaic's tiling and are not reproduced.
 //
 // What bounds it on this card: at B=16, 640x640 it moves 19.7 MB in and 210 MB
-// out for 71.7 GFLOP (0.07 ms either way), so neither: its first layer runs on
-// the CUDA cores like kernel A (K = 27 is too short for the tensor cores) and
-// is bound by their f32 rate and the shared-memory loads that feed it; the
-// second layer runs on the tensor cores with kernel B's device code. Design: a
-// block of 512 threads keeps K2[b] (bf16, 38 KB) and K1[b] in shared memory and
-// walks 16x16 output tiles of its image. Per tile it stages the 35x35x3 frame
-// window as f32, computes the 33x33x32 window of a1 the tile needs into shared
-// memory (8 threads per pixel, 4 channels each, the products in kernel A's
-// order and kernel A's SiLU, so a1 has kernel A's bits), written in the
-// column-parity layout kernel B's tile code reads (stem_l2_tile.cuh), and runs
-// the second layer from there, one tile row per warp: the same MMAs in the same
-// order as kernel B, so the output has kernel B's bits. 148 KB of shared memory
-// and one block per SM. A tile recomputes a1's one-pixel halo: 1089 pixels for
-// 1024 it owns.
+// out for 71.7 GFLOP (0.07 ms either way), so neither: what it costs is the
+// instruction slots, shared-memory traffic and barriers of two layers that run one
+// after the other in each block. Both layers run on the tensor cores: the
+// first with kernel A's tile code (stem_l1_tile.cuh: K = 48 with the bias in a
+// ones slot, one 8-byte shared-memory load per pixel and tap row, SiLU on the
+// special-function unit), the second with kernel B's (stem_l2_tile.cuh).
+// Design: a block of 256 threads keeps K2[b] (bf16, 38 KB) in shared memory
+// and K1[b] as B fragments in registers and walks output tiles of 8 rows x 16
+// columns of its image. Per tile it stages the 19x35 frame window as bf16
+// (r, g, b, 1.0), computes the 17x33x32 window of a1 the tile needs into
+// shared memory, 16
+// consecutive pixels of the flattened window per warp and step (an mma.sync
+// output element's bits depend on the instruction and the K order, not on
+// where in a fragment the pixel sits, so a1 has kernel A's bits), written in
+// the column-parity layout kernel B's tile code reads, and runs the second
+// layer from there, one tile row per warp: the same MMAs in the same order as
+// kernel B, so the output has kernel B's bits. The tile is half of kernel B's
+// so that two blocks fit an SM (88 KB of shared memory each): a block's phases
+// (frame loads, first layer, second layer, stores) follow one another between
+// barriers, and the second block's phases fill the units the first leaves
+// idle. One block of 512 threads on 16x16 tiles (138 KB) took 0.63 ms where
+// this takes 0.49 (NVIDIA H100 80GB HBM3, 700 W, launches back to back). A
+// tile recomputes a1's one-pixel halo: 561 pixels for the 512 it owns.
+#include "stem_l1_tile.cuh"
 #include "stem_l2_tile.cuh"
 
 namespace {
 
 using namespace uavdet::l2;
+namespace l1 = uavdet::l1;
 
-constexpr int THREADS = 512;
-constexpr int RW = TR / (THREADS / 32);          // tile rows per warp: 1
-constexpr int CG = 8;                            // threads per pixel of a1, 4 channels each
-constexpr int XR = IR + 2;                       // rows of the frame window
+constexpr int THREADS = 256;
+constexpr int TRF = 8;                           // output tile rows here (kernel B's tile has 16)
+constexpr int RW = TRF / (THREADS / 32);         // tile rows per warp: 1
+constexpr int IRF = 2 * TRF + 1;                 // rows of the a1 window
+constexpr int XR = IRF + 2;                      // rows of the frame window
 constexpr int XC = IC + 2;                       // columns of the frame window
-constexpr int C1 = 32;                           // channels of a1
-constexpr int K1W = 28;                          // K1 row: 27 taps + bias
-constexpr int SLOTS = THREADS / CG;              // a1 pixels the block computes at once
-constexpr size_t K1_BYTES = sizeof(float) * K1W * C1;
-constexpr size_t X_BYTES = sizeof(float4) * XR * XC;
-constexpr size_t SMEM_BYTES = W_BYTES + K1_BYTES + X_BYTES + IN_BYTES;
+constexpr int A1_PIXELS = IRF * IC;              // pixels of the a1 window
+constexpr size_t X_BYTES = (sizeof(uint2) * XR * XC + 15) / 16 * 16;
+constexpr size_t A1_BYTES = sizeof(__nv_bfloat16) * IRF * 2 * PC * IN_STRIDE;
+constexpr size_t SMEM_BYTES = W_BYTES + X_BYTES + A1_BYTES;
 
-static_assert(CI == C1 && C1 == 4 * CG, "8 threads of 4 channels cover a pixel of a1");
-static_assert(RW * (THREADS / 32) == TR, "the warps cover the tile's rows");
-static_assert((W_BYTES + K1_BYTES + X_BYTES) % 16 == 0, "the a1 window is 16-byte aligned");
+static_assert(CI == l1::C_OUT, "the first layer's channels are the second's input");
+static_assert(RW * (THREADS / 32) == TRF, "the warps cover the tile's rows");
+static_assert((W_BYTES + X_BYTES) % 16 == 0, "the a1 window is 16-byte aligned");
 
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 2)
 stem_fused_kernel(const T* __restrict__ x, const __nv_bfloat16* __restrict__ k1,
                   const __nv_bfloat16* __restrict__ k2, __nv_bfloat16* __restrict__ out, int H,
                   int W, int Ho, int Wo, int tiles_x, int n_tiles) {
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* s_w = reinterpret_cast<__nv_bfloat16*>(smem);            // [CO][W_STRIDE]
   float* s_bias = reinterpret_cast<float*>(s_w + CO * W_STRIDE);          // [CO]
-  float* s_k1 = s_bias + CO;                                              // [K1W][C1]
-  float4* s_x = reinterpret_cast<float4*>(s_k1 + K1W * C1);               // [XR][XC] (r, g, b, -)
-  __nv_bfloat16* s_in = reinterpret_cast<__nv_bfloat16*>(s_x + XR * XC);  // [IR][2][PC][IN_STRIDE]
+  uint2* s_x = reinterpret_cast<uint2*>(s_bias + CO);                     // [XR][XC] (r, g | b, 1)
+  __nv_bfloat16* s_in =
+      reinterpret_cast<__nv_bfloat16*>(smem + W_BYTES + X_BYTES);         // [IRF][2][PC][IN_STRIDE]
 
   const int b = blockIdx.y;
   const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int warp = tid / 32;
+  const int row0 = RW * warp;
 
   stage_k2<THREADS>(k2 + static_cast<size_t>(b) * CO * KW, s_w, s_bias, tid);
-  const __nv_bfloat16* k1b = k1 + static_cast<size_t>(b) * C1 * K1W;
-  for (int i = tid; i < C1 * K1W; i += THREADS)
-    s_k1[(i % K1W) * C1 + i / K1W] = __bfloat162float(k1b[i]);
+  uint32_t bf[l1::KSTEPS][4][2];
+  l1::load_k1(k1 + static_cast<size_t>(b) * l1::C_OUT * l1::K1W, lane, bf);
 
   const T* xb = x + static_cast<size_t>(b) * H * W * 3;
-  const int cg = tid % CG;
-  const int slot = tid / CG;
-  const int lane = tid % 32;
-  const int row0 = RW * (tid / 32);
 
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int oy0 = (tile / tiles_x) * TR;
+    const int oy0 = (tile / tiles_x) * TRF;
     const int ox0 = (tile % tiles_x) * TC;
     const int ly0 = 2 * oy0 - 1;  // a1 window origin
     const int lx0 = 2 * ox0 - 1;
-    __syncthreads();  // K1 and K2 are staged, and the previous tile is done with its windows
+    __syncthreads();  // K2 is staged, and the previous tile is done with its windows
     for (int i = tid; i < XR * XC; i += THREADS) {
       const int gy = ly0 - 1 + i / XC;
       const int gx = lx0 - 1 + i % XC;
-      float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);  // the first layer's zero padding
-      if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
-        const T* px = xb + (static_cast<size_t>(gy) * W + gx) * 3;
-        v = make_float4(uavdet::to_f32(px[0]), uavdet::to_f32(px[1]), uavdet::to_f32(px[2]), 0.0f);
-      }
-      s_x[i] = v;
+      s_x[i] = gy >= 0 && gy < H && gx >= 0 && gx < W
+                   ? l1::stage_pixel(xb + (static_cast<size_t>(gy) * W + gx) * 3)
+                   : l1::pad_pixel();  // the first layer's zero padding
     }
     __syncthreads();
 
     // the first layer over the a1 window, rounded to bf16; zero outside the image
-    for (int p = slot; p < IR * IC; p += SLOTS) {
-      const int r = p / IC;
-      const int c = p % IC;
-      const int ly = ly0 + r;
-      const int lx = lx0 + c;
-      uint2 packed = make_uint2(0u, 0u);
-      if (ly >= 0 && ly < H && lx >= 0 && lx < W) {
-        float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    for (int m = warp; 16 * m < A1_PIXELS; m += THREADS / 32) {
+      int r[2], c[2];
+      bool in_window[2];
 #pragma unroll
-        for (int tap = 0; tap < 9; ++tap) {
-          const float4 xv = s_x[(r + tap / 3) * XC + c + tap % 3];
-          const float in[3] = {xv.x, xv.y, xv.z};
-#pragma unroll
-          for (int ch = 0; ch < 3; ++ch) {
-            const float4 w =
-                *reinterpret_cast<const float4*>(s_k1 + (3 * tap + ch) * C1 + 4 * cg);
-            acc[0] = fmaf(w.x, in[ch], acc[0]);
-            acc[1] = fmaf(w.y, in[ch], acc[1]);
-            acc[2] = fmaf(w.z, in[ch], acc[2]);
-            acc[3] = fmaf(w.w, in[ch], acc[3]);
-          }
-        }
-        const float4 bias = *reinterpret_cast<const float4*>(s_k1 + (K1W - 1) * C1 + 4 * cg);
-        packed = make_uint2(
-            uavdet::pack_bf16x2(uavdet::silu(acc[0] + bias.x), uavdet::silu(acc[1] + bias.y)),
-            uavdet::pack_bf16x2(uavdet::silu(acc[2] + bias.z), uavdet::silu(acc[3] + bias.w)));
+      for (int h = 0; h < 2; ++h) {
+        const int p = 16 * m + lane / 4 + 8 * h;
+        in_window[h] = p < A1_PIXELS;
+        r[h] = in_window[h] ? p / IC : 0;
+        c[h] = in_window[h] ? p % IC : 0;
       }
-      *reinterpret_cast<uint2*>(s_in + window_index(r, c) + 4 * cg) = packed;
+      float acc[4][4];
+      l1::tile_mma(s_x + r[0] * XC + c[0] + l1::tap_lane(lane),
+                   s_x + r[1] * XC + c[1] + l1::tap_lane(lane), XC, bf, acc);
+      uint4 v[2];
+      l1::activate(acc, v[0], v[1]);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int ly = ly0 + r[h];
+        const int lx = lx0 + c[h];
+        if (ly < 0 || ly >= H || lx < 0 || lx >= W) v[h] = make_uint4(0u, 0u, 0u, 0u);
+        if (in_window[h])
+          *reinterpret_cast<uint4*>(s_in + window_index(r[h], c[h]) + 8 * (lane % 4)) = v[h];
+      }
     }
     __syncthreads();
 
@@ -147,17 +147,22 @@ cudaError_t launch(const void* x, const void* k1, const void* k2, void* out, int
   const int Ho = (H + 1) / 2;
   const int Wo = (W + 1) / 2;
   const int tiles_x = (Wo + TC - 1) / TC;
-  const int n_tiles = tiles_x * ((Ho + TR - 1) / TR);
+  const int n_tiles = tiles_x * ((Ho + TRF - 1) / TRF);
   int dev = 0;
   int sms = 0;
+  int resident = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(stem_fused_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(SMEM_BYTES));
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, stem_fused_kernel<T>, THREADS,
+                                                        SMEM_BYTES);
   if (err != cudaSuccess) return err;
-  // one block per SM across the batch, no second wave; each walks several tiles of one image
-  int workers = sms / B;
+  // one wave: as many workers per image as fit on the card at once, rounded
+  // down; each walks several tiles of one image
+  int workers = resident * sms / B;
   if (workers > n_tiles) workers = n_tiles;
   if (workers < 1) workers = 1;
   stem_fused_kernel<T><<<dim3(workers, B), THREADS, SMEM_BYTES, stream>>>(

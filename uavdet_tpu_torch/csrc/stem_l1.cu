@@ -13,116 +13,118 @@
 // bias column is not scaled. Float frames arrive already rounded to bf16.
 // Accumulation and SiLU are f32, the store is bf16: what the TPU kernel does.
 // The TPU kernel's quad-parity bank layout exists only for Mosaic's (8, 128)
-// tiling and is not reproduced.
+// tiling and is not reproduced. H and W may be any size.
 //
 // What bounds it on this card: the 32-channel bf16 write. At B=16, 640x640
 // that is 419 MB written against 20 MB of uint8 read and 11.7 GFLOP, about
-// 0.13 ms of HBM time at 3.35 TB/s. Design: a block stages its input tile,
-// with a one-pixel zero halo (the conv's padding, applied to the input only),
-// in shared memory once. Each thread owns 4 of the 32 output channels: their
-// 4 x 28 weights stay in registers for the whole tile, and per pixel it reads
-// the 27 taps from shared memory (the 8 threads of one pixel read the same
-// words, a broadcast) and issues 112 FMAs. The 8 threads of a pixel write its
-// 64 output bytes as 8-byte stores side by side, so a warp writes 256
-// contiguous bytes of NHWC. (A first version gave each thread a whole pixel;
-// its 32 accumulators and 32 sums spilled at 255 registers.) The channel
-// sums are reduced in a fixed order inside the block and written as one
+// 0.13 ms of HBM time at 3.35 TB/s. Everything else has to hide under that
+// write, so the arithmetic is on the units that do it for nothing: the tap
+// product on the tensor cores (mma.sync), the SiLU on the special-function
+// unit, and the accumulator layout chosen so that every thread stores 16
+// contiguous bytes straight from its registers (stem_l1_tile.cuh has the
+// details; the fused stem shares that code and its bits). A block of four
+// warps stages the bf16 window of its 16 x 64 tile with a one-pixel zero halo
+// (the conv's padding, applied to the input only) and holds K1[b] as B
+// fragments in registers; warp w owns the tile's columns 16w .. 16w+15 and
+// walks its 16 rows, one m16 fragment each. Many small blocks rather than one
+// persistent block per SM: six are resident per SM, so while one stages its
+// window the others' stores keep device memory busy. The channel sums are
+// taken from the packed bf16 values, reduced over the warp's pixels by
+// shuffles and over the block's warps in a fixed order, and written as one
 // partial row per block (no atomics); the wrapper adds the partials with
-// torch.sum, so the sums are deterministic.
-#include "common.cuh"
+// torch.sum, so two launches give the same bits.
+//
+// On an NVIDIA H100 80GB HBM3 at 700 W, (16, 640, 640, 3) uint8: 0.19 ms (the
+// first version 0.77), where the same stores with no arithmetic take 0.17 and
+// a memset of the output 0.13. Dropping the SiLU gains 0.011 ms, dropping the
+// sums 0.008; tiles of 8 or 32 rows or 32 or 128 columns, 4 or 8 blocks per SM,
+// streaming stores and a one-MUFU SiLU by tanh.approx all came out within 5 %,
+// so the simple grid stayed and no persistent one was written.
+#include "stem_l1_tile.cuh"
 
 namespace {
 
+using namespace uavdet;
+using namespace uavdet::l1;
+
 constexpr int C_IN = 3;
-constexpr int C_OUT = 32;
-constexpr int K = 28;                   // 27 taps + the bias column
 constexpr int TW = 64;                  // output tile: TW columns ...
 constexpr int TH = 16;                  // ... by TH rows per block
-constexpr int THREADS = 128;
-constexpr int CH = 4;                   // output channels per thread
-constexpr int CG = C_OUT / CH;          // threads per pixel
-constexpr int SLOTS = THREADS / CG;     // pixels a block works on at once
-constexpr int WARPS = THREADS / 32;
+constexpr int WARPS = TW / 16;          // one m16 column block per warp
+constexpr int THREADS = 32 * WARPS;
+constexpr int PITCH = TW + 2;           // staged pixels per window row
+constexpr int WIN = (TH + 2) * PITCH;
+
+// the 8 stored bf16 values of a pixel, added to the lane's channel sums
+__device__ __forceinline__ void add_stored(float (&sum)[8], const uint4& v) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    sum[2 * j] += __uint_as_float(w[j] << 16);
+    sum[2 * j + 1] += __uint_as_float(w[j] & 0xffff0000u);
+  }
+}
 
 template <typename T>
-__global__ void __launch_bounds__(THREADS, 3)
+__global__ void __launch_bounds__(THREADS, 6)
 stem_l1_kernel(const T* __restrict__ x, const __nv_bfloat16* __restrict__ k1,
-               __nv_bfloat16* __restrict__ out, float* __restrict__ partial,
-               int H, int W) {
-  __shared__ float s_in[TH + 2][TW + 2][C_IN];
+               __nv_bfloat16* __restrict__ out, float* __restrict__ partial, int H, int W) {
+  __shared__ uint2 s_x[WIN];            // the window: (r, g | b, 1.0) bf16 per pixel
   __shared__ float s_red[WARPS][C_OUT];
 
   const int b = blockIdx.z;
   const int y0 = blockIdx.y * TH;
   const int x0 = blockIdx.x * TW;
   const int tid = threadIdx.x;
-  const int cg = tid % CG;              // this thread: channels CH*cg ..
-  const int slot = tid / CG;
-
-  const T* xb = x + static_cast<size_t>(b) * H * W * C_IN;
-  for (int i = tid; i < (TH + 2) * (TW + 2) * C_IN; i += THREADS) {
-    const int c = i % C_IN;
-    const int col = (i / C_IN) % (TW + 2);
-    const int row = i / (C_IN * (TW + 2));
-    const int gy = y0 + row - 1;
-    const int gx = x0 + col - 1;
-    float v = 0.0f;
-    if (gy >= 0 && gy < H && gx >= 0 && gx < W)
-      v = uavdet::to_f32(xb[(static_cast<size_t>(gy) * W + gx) * C_IN + c]);
-    s_in[row][col][c] = v;
-  }
-
-  float w[CH][K];
-  const __nv_bfloat16* kb = k1 + (static_cast<size_t>(b) * C_OUT + CH * cg) * K;
-#pragma unroll
-  for (int o = 0; o < CH; ++o)
-#pragma unroll
-    for (int t = 0; t < K; ++t) w[o][t] = __bfloat162float(kb[o * K + t]);
-  __syncthreads();
-
-  float sum[CH] = {0.0f, 0.0f, 0.0f, 0.0f};
-  for (int p = slot; p < TH * TW; p += SLOTS) {
-    const int ty = p / TW;
-    const int tx = p % TW;
-    const int gy = y0 + ty;
-    const int gx = x0 + tx;
-    if (gy >= H || gx >= W) continue;  // pixels past the image are not stored or summed
-    float acc[CH] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-    for (int ki = 0; ki < 3; ++ki)
-#pragma unroll
-      for (int kj = 0; kj < 3; ++kj)
-#pragma unroll
-        for (int c = 0; c < C_IN; ++c) {
-          const float v = s_in[ty + ki][tx + kj][c];
-          const int t = (ki * 3 + kj) * C_IN + c;
-#pragma unroll
-          for (int o = 0; o < CH; ++o) acc[o] = fmaf(w[o][t], v, acc[o]);
-        }
-    uint32_t packed[CH / 2];
-#pragma unroll
-    for (int o = 0; o < CH; o += 2) {
-      // + the bias column, times the TPU kernel's ones row
-      const uint32_t q = uavdet::pack_bf16x2(uavdet::silu(acc[o] + w[o][K - 1]),
-                                             uavdet::silu(acc[o + 1] + w[o + 1][K - 1]));
-      packed[o / 2] = q;
-      // the sums take the stored bf16 values, which is what kernel B reads
-      sum[o] += __uint_as_float(q << 16);
-      sum[o + 1] += __uint_as_float(q & 0xffff0000u);
-    }
-    *reinterpret_cast<uint2*>(out + ((static_cast<size_t>(b) * H + gy) * W + gx) * C_OUT +
-                              CH * cg) = make_uint2(packed[0], packed[1]);
-  }
-
-  // lanes l, l^8, l^16, l^24 of a warp hold the same channels
   const int lane = tid % 32;
   const int warp = tid / 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+
+  const T* xb = x + static_cast<size_t>(b) * H * W * C_IN;
+  for (int i = tid; i < WIN; i += THREADS) {
+    const int gy = y0 + i / PITCH - 1;
+    const int gx = x0 + i % PITCH - 1;
+    s_x[i] = gy >= 0 && gy < H && gx >= 0 && gx < W
+                 ? stage_pixel(xb + (static_cast<size_t>(gy) * W + gx) * C_IN)
+                 : pad_pixel();
+  }
+  uint32_t bf[KSTEPS][4][2];
+  load_k1(k1 + static_cast<size_t>(b) * C_OUT * K1W, lane, bf);
+  __syncthreads();
+
+  float sum[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  const int gx = x0 + 16 * warp + g;    // the lane's pixel g; pixel g + 8 is 8 further
+  if (x0 + 16 * warp < W) {
+    const uint2* p = s_x + 16 * warp + g + tap_lane(lane);
+    const int rows = min(TH, H - y0);
+    for (int ty = 0; ty < rows; ++ty, p += PITCH) {
+      float acc[4][4];
+      tile_mma(p, p + 8, PITCH, bf, acc);
+      uint4 lo, hi;
+      activate(acc, lo, hi);
+      // pixels past the image are not stored or summed
+      __nv_bfloat16* dst =
+          out + ((static_cast<size_t>(b) * H + y0 + ty) * W + gx) * C_OUT + 8 * t;
+      if (gx < W) {
+        *reinterpret_cast<uint4*>(dst) = lo;
+        add_stored(sum, lo);
+      }
+      if (gx + 8 < W) {
+        *reinterpret_cast<uint4*>(dst + 8 * C_OUT) = hi;
+        add_stored(sum, hi);
+      }
+    }
+  }
+
+  // lanes of equal t hold the same 8 channels: add over g, then over the warps
 #pragma unroll
-  for (int o = 0; o < CH; ++o) {
-    float v = sum[o];
+  for (int c = 0; c < 8; ++c) {
+    float v = sum[c];
+    v += __shfl_xor_sync(0xffffffffu, v, 4);
     v += __shfl_xor_sync(0xffffffffu, v, 8);
     v += __shfl_xor_sync(0xffffffffu, v, 16);
-    if (lane < CG) s_red[warp][CH * lane + o] = v;
+    if (g == 0) s_red[warp][8 * t + c] = v;
   }
   __syncthreads();
   if (tid < C_OUT) {
@@ -145,6 +147,7 @@ UAVDET_EXPORT int uavdet_stem_l1_num_partials(int H, int W) {
 // out: (B, H, W, 32) bf16; partial: (B, uavdet_stem_l1_num_partials(H, W), 32) f32.
 UAVDET_EXPORT int uavdet_stem_l1(const void* x, int x_is_u8, const void* k1, void* out,
                                  void* partial, int B, int H, int W, void* stream) {
+  if (B < 1 || B > 65535 || H < 1 || W < 1) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* kp = static_cast<const __nv_bfloat16*>(k1);

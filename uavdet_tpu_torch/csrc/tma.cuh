@@ -1,5 +1,6 @@
 // Hopper's Tensor Memory Accelerator, transaction barriers and thread block
-// clusters, for the kernels that let the hardware copy their tiles (dyconv.cu).
+// clusters, for the kernels that let the hardware copy their tiles (dyconv.cu)
+// or that read another block's shared memory (nms.cu).
 //
 // One thread asks for a box of a tensor in device memory; the copy engine
 // computes the addresses, fills what lies outside the tensor with zeros, writes
@@ -65,6 +66,21 @@ __device__ __forceinline__ uint32_t cluster_ctarank() {
 __device__ __forceinline__ void cluster_sync() {
   asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The address, in the cluster's shared window, of the shared-memory location
+// `addr` (of this block) in the block of rank `rank`.
+__device__ __forceinline__ uint32_t cluster_map_shared(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+// 8 bytes from the cluster's shared window (distributed shared memory).
+__device__ __forceinline__ unsigned long long ld_cluster_u64(uint32_t addr) {
+  unsigned long long v;
+  asm volatile("ld.shared::cluster.u64 %0, [%1];\n" : "=l"(v) : "r"(addr) : "memory");
+  return v;
 }
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t arrivals) {

@@ -92,8 +92,6 @@ def library() -> ctypes.CDLL:
     lib.uavdet_error_string.restype = ctypes.c_char_p
     lib.uavdet_stem_l1_num_partials.argtypes = [_I, _I]
     lib.uavdet_stem_l1_num_partials.restype = _I
-    lib.uavdet_nms_max_boxes.argtypes = []
-    lib.uavdet_nms_max_boxes.restype = _I
     lib.uavdet_dyconv_num_partials.argtypes = [_I, _I]
     lib.uavdet_dyconv_num_partials.restype = _I
     return lib
@@ -140,6 +138,14 @@ STEM_L2_STAGE = CudaKernel("uavdet_stem_l2_stage", [_P, _P, _P, _I, _I, _I,
 # (x, w1, k2, k3, b1, b2, b3, out, B, H, W, stage, stream)
 POST_STEM_BLOCK = CudaKernel("uavdet_post_stem_block", [
     _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P])
+
+# Measuring aids of the NMS kernel, on no path and so not in ALL: the kernel
+# with the global timer read after each of its two phases
+# (boxes, alive, stamps, B, N, iou_threshold, stream), and its grid with no
+# work in it (B, stream).
+NMS_STAMPED = CudaKernel("uavdet_nms_alive_stamped",
+                         [_P, _P, _P, _I, _I, ctypes.c_float, _P])
+NMS_EMPTY = CudaKernel("uavdet_nms_empty_launch", [_I, _P])
 
 ALL = {"stem_l1": STEM_L1, "stem_l2": STEM_L2, "nms": NMS, "dyconv": DYCONV,
        "stem_fused": STEM_FUSED, "stem_l2_stage": STEM_L2_STAGE,

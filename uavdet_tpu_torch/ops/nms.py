@@ -11,12 +11,64 @@ plain PyTorch version ``nms_alive_plain``, a CUDA tensor launches the kernel,
 anything else raises.
 """
 
+import numpy as np
 import torch
 
 from .. import kernels
 from .boxes import box_iou_pairwise
 
 _BLOCK = 32
+MAX_BOXES = 1024   # per image, what the kernel's shared memory holds
+
+# (kind, B, N) at the edges of the kernel's layout: 64 ranks per mask word, 8
+# blocks per image that take the mask's rows in turn, at most MAX_BOXES boxes.
+# ``nms_edge_case`` makes the boxes. The CPU tests hold the plain version
+# against the JAX package at these cases, the smoke test the kernel against
+# the plain version on the card, bitwise.
+NMS_EDGE_CASES = (
+    ("crowded", 1, 1),        # one box
+    ("crowded", 1, 63),       # a bit short of one word
+    ("crowded", 2, 65),       # a bit past one word; N not a multiple of 8
+    ("crowded", 16, 512),     # the detector's shape
+    ("crowded", 1, 1024),     # the most the kernel takes
+    ("crowded", 3, 100),      # N a multiple of neither 64 nor 8
+    ("identical", 2, 130),    # every box the same: one survivor
+    ("disjoint", 2, 200),     # no two boxes overlap: all survive
+)
+
+
+def nms_edge_case(kind: str, b: int, n: int, rng: np.random.Generator):
+    """-> (boxes (b, n, 4) xyxy, scores (b, n)) f32 numpy arrays, unsorted.
+
+    "crowded": overlapping boxes with exact duplicates of equal score, a run
+    of equal scores, zero-area boxes and -inf padding of zero boxes, as the
+    detector hands them to NMS; "identical": one box n times; "disjoint":
+    boxes on a grid that do not touch.
+    """
+    scores = rng.uniform(size=(b, n)).astype(np.float32)
+    if kind == "identical":
+        boxes = np.tile(np.float32([10, 20, 50, 90]), (b, n, 1))
+    elif kind == "disjoint":
+        cell = np.arange(n)
+        xy = np.stack([cell % 16, cell // 16], axis=-1) * 40.0
+        boxes = np.broadcast_to(np.concatenate([xy, xy + 30.0], axis=-1),
+                                (b, n, 4)).astype(np.float32)
+    elif kind == "crowded":
+        xy = rng.uniform(0, 200 + n / 2, size=(b, n, 2))
+        boxes = np.concatenate([xy, xy + rng.uniform(4, 60, size=(b, n, 2))],
+                               axis=-1).astype(np.float32)
+        d = n // 8
+        boxes[:, d:2 * d] = boxes[:, :d]              # exact duplicates
+        scores[:, d:2 * d] = scores[:, :d]            # ... with equal scores
+        scores[:, 2 * d:3 * d] = 0.5                  # a run of ties
+        boxes[:, 3 * d:3 * d + d // 2, 2:] = \
+            boxes[:, 3 * d:3 * d + d // 2, :2]        # zero-area boxes
+        pad = n // 10
+        boxes[:, n - pad:] = 0.0                      # padding
+        scores[:, n - pad:] = -np.inf
+    else:
+        raise ValueError(f"unknown kind of NMS case {kind!r}")
+    return np.ascontiguousarray(boxes), scores
 
 
 def nms_alive_plain(boxes_sorted: torch.Tensor,
@@ -50,25 +102,50 @@ def nms_alive_plain(boxes_sorted: torch.Tensor,
     return alive
 
 
-def _nms_alive_cuda(boxes_sorted: torch.Tensor,
-                    iou_threshold: float) -> torch.Tensor:
+def _nms_alive_cuda(boxes_sorted: torch.Tensor, iou_threshold: float,
+                    stamps: torch.Tensor | None = None) -> torch.Tensor:
+    """The kernel; with ``stamps`` (B, 3) int64 on the card, the kernel that
+    also writes the global timer in ns at each image's start, after its pair
+    mask and after its walk."""
     b, n, four = boxes_sorted.shape
     if four != 4 or boxes_sorted.dtype != torch.float32:
         raise ValueError(f"boxes must be (B, N, 4) float32, got "
                          f"{tuple(boxes_sorted.shape)} {boxes_sorted.dtype}")
-    max_n = kernels.library().uavdet_nms_max_boxes()
-    if n > max_n:
-        raise ValueError(f"the NMS kernel takes at most {max_n} boxes, "
-                         f"got {n}")
-    alive = torch.empty((b, n), dtype=torch.bool, device=boxes_sorted.device)
-    if b == 0 or n == 0:
-        return alive
+    if not (1 <= n <= MAX_BOXES and b >= 1):
+        raise ValueError(f"the NMS kernel takes 1 to {MAX_BOXES} boxes of at "
+                         f"least one image, got {n} boxes of {b} images")
     boxes_sorted = boxes_sorted.contiguous()
     if boxes_sorted.data_ptr() % 16:
         raise ValueError("boxes must be 16-byte aligned (read as float4)")
-    kernels.NMS(boxes_sorted.data_ptr(), alive.data_ptr(), b, n,
-                float(iou_threshold), kernels.stream_of(boxes_sorted))
+    alive = torch.empty((b, n), dtype=torch.bool, device=boxes_sorted.device)
+    if stamps is None:
+        kernels.NMS(boxes_sorted.data_ptr(), alive.data_ptr(), b, n,
+                    float(iou_threshold), kernels.stream_of(boxes_sorted))
+    else:
+        kernels.NMS_STAMPED(boxes_sorted.data_ptr(), alive.data_ptr(),
+                            stamps.data_ptr(), b, n, float(iou_threshold),
+                            kernels.stream_of(boxes_sorted))
     return alive
+
+
+def nms_phase_ms(boxes_sorted: torch.Tensor, iou_threshold: float = 0.5):
+    """One launch of the kernel on CUDA boxes with the card's global timer
+    read inside it -> (ms of the pair mask, ms of the walk), each the
+    largest over the images (they run side by side). A measuring aid: no
+    path calls it."""
+    stamps = torch.zeros((boxes_sorted.shape[0], 3), dtype=torch.int64,
+                         device=boxes_sorted.device)
+    _nms_alive_cuda(boxes_sorted, iou_threshold, stamps)
+    t = stamps.cpu()
+    return (float((t[:, 1] - t[:, 0]).max()) * 1e-6,
+            float((t[:, 2] - t[:, 1]).max()) * 1e-6)
+
+
+def nms_empty_launch(batch: int) -> None:
+    """The kernel's grid for ``batch`` images (clusters, block size) with no
+    work in it, on the current stream: what a launch of that shape alone
+    costs on the card. A measuring aid: no path calls it."""
+    kernels.NMS_EMPTY(batch, torch.cuda.current_stream().cuda_stream)
 
 
 def nms_alive(boxes_sorted: torch.Tensor,

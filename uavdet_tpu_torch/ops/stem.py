@@ -24,8 +24,8 @@ memory. No detector can call it, for the reason above: it is a public op.
 
 Kernel A takes raw uint8 frames: /255 is folded into K1, and the
 attention's pooling is taken on the bytes. Both kernels round their
-operands to bf16, accumulate in f32, apply SiLU in f32 and store bf16, as
-the TPU kernels do. ``stem_l1`` / ``stem_l2`` dispatch on the device of
+operands to bf16, run their products on the tensor cores with f32 sums,
+apply SiLU in f32 and store bf16, as the TPU kernels do. ``stem_l1`` / ``stem_l2`` dispatch on the device of
 their input: a CPU tensor takes the plain PyTorch version (``*_plain``), a
 CUDA tensor launches the kernel (``csrc/stem_l1.cu``, ``csrc/stem_l2.cu``),
 anything else raises.
@@ -146,6 +146,20 @@ def _stem_l1_cuda(x: torch.Tensor, k1: torch.Tensor):
                     b, h, w, kernels.stream_of(xq))
     return a1, partial.sum(dim=1)
 
+
+# Shapes (B, H, W) of the frames at the edges of kernel A's tiling: a block
+# takes 16 rows x 64 columns, a warp 16 columns of it as one m16 fragment, a
+# lane the fragment's pixels g and g + 8. The CPU tests hold the plain version
+# against a float64 conv at these shapes (uint8 and float frames), the smoke
+# test the kernel against the plain version on the card.
+L1_EDGE_SHAPES = (
+    (1, 1, 1),        # one pixel: every tap but the centre is padding
+    (2, 9, 13),       # odd both ways, under one tile
+    (1, 17, 65),      # one row and one column past a tile
+    (1, 15, 63),      # a row and a column short of a tile
+    (2, 32, 72),      # two tiles of rows; half a fragment past a tile
+    (1, 64, 128),     # whole tiles, a shape the TPU kernel takes too
+)
 
 # Shapes (B, H, W) of a1 at the edges of kernel B's tiling: a tile is 16 x 16
 # output pixels, 33 x 33 of a1; with an odd H or W the last output row or

@@ -32,3 +32,22 @@ def cuda_ms(fn, iters: int, warmup: int) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def back_to_back_ms(fn, iters: int, warmup: int = 3) -> float:
+    """Mean device time of one call of ``fn`` in ms among ``iters`` launched
+    back to back between two CUDA events: where a call's device work
+    outlasts the host's time to launch it, the work alone. (One call between
+    two events also counts the host's time to launch it, which is most of
+    the reading for a kernel of some 30 us.)"""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
