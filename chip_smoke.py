@@ -22,9 +22,10 @@ nor PyYAML. The phases, in order:
      straddle its 16 x 16 output tile);
   4. the NMS kernel against its plain version at (16, 512) boxes with
      duplicates, equal scores, zero-area boxes and -inf padding, and at the
-     cases of ``ops.nms.NMS_EDGE_CASES`` (1 to 1024 boxes, sizes off the
-     64-rank mask word and the 8 blocks of a cluster, all boxes identical,
-     no two overlapping): bitwise;
+     cases of ``ops.nms.NMS_EDGE_CASES`` (1 to 4096 boxes, sizes off the
+     64-rank mask word and the 8 blocks of a cluster, the path with the mask
+     in device memory past 1024 boxes, all boxes identical, no two
+     overlapping): bitwise;
   5. kernel D (dyconv) against its plain version: the shapes of
      ``ops.dyconv.EDGE_SHAPES`` (sizes that straddle its 16 x 16 pixel
      tile, its chunks of 16 input channels and its N tiles of 64 and 128
@@ -45,10 +46,14 @@ nor PyYAML. The phases, in order:
      ``uavdet_tpu_torch.scripts.l2_ablate``, which prints every stage's
      time;
   5g. kernel G (the fused post-stem block) against its plain version at
-     (16, 320, 320, 64) with the weights folded from the full-width DyYOLO,
-     at an odd shape, and on a small input with large biases, where every
-     output depends on the zero padding of the two inner activations; then
-     its path, ``uavdet_tpu_torch.scripts.block_ablate``;
+     (16, 320, 320, 64) with the weights folded from the full-width DyYOLO
+     (packed once, and as the (O, K + 1) matrices: bitwise the same), at an
+     odd shape, at the shapes of ``ops.block.BLOCK_EDGE_SHAPES`` (sizes off
+     its 8 x 8 output tile, one pixel, H = 2, W = 1, a part-full last round
+     of its persistent grid, odd batches), and on a small input with large
+     biases, where every output depends on the zero padding of the two
+     inner activations; each twice, bitwise equal; then its path,
+     ``uavdet_tpu_torch.scripts.block_ablate``;
   6. main path 1: full-width DyYOLO (conf/model/dy-yolo.yaml widths), bf16,
      seeded random weights, answers 3 requests of 16 uint8 640x640 frames
      through ``make_detector``; checks the results and the launch counts
@@ -69,6 +74,12 @@ nor PyYAML. The phases, in order:
      requests of 8 RGB (1080x1920) + 8 infrared (512x640) uint8 frames
      through ``make_detector(..., dual=True)`` (stem kernels and NMS once
      per request); compared with the plain path;
+  7d. DyYOLO with ``pre_nms_topk=4096`` (3 requests of 16 frames; the NMS
+     kernel's path with the mask in device memory), compared with the
+     plain path;
+  7e. DySOEM_SimFPN in float32 (batch 2, 256 px, eval mode): its SOEMs
+     take the grouped conv (no kernel claims f32), against the same
+     model's detections on the CPU;
   8. times, with CUDA events, medians after warm-up: the four detectors per
      batch, and each kernel at its main-path shapes beside its plain
      version and beside one bf16 ``F.conv2d(groups=B)`` call that computes
@@ -81,8 +92,10 @@ nor PyYAML. The phases, in order:
      every kernel also as the mean of back-to-back launches
      (``back_to_back_ms``: one launch between two events also counts the
      host's time to launch it, which is most of a 30 us kernel's reading);
-     the NMS kernel also at (1, 512), its two phases by the card's global
-     timer, and an empty launch of its grid;
+     the NMS kernel also at (1, 512) and (16, 4096), its two phases by the
+     card's global timer, and an empty launch of its grid; kernel G with
+     the weights packed once, its time alone by the profiler, and the eager
+     tail's two layers it replaces;
   9. a ``torch.profiler`` window of each detector: device time by kernel.
 
 No detector path may launch kernel E, F or G: their paths are the op and
@@ -111,6 +124,8 @@ SOEM_ITERS, SOEM_WARMUP = 5, 2       # the DySOEM detector and kernel D per site
 PLAIN_ITERS, PLAIN_WARMUP = 2, 1     # kernel D's f32 plain version at batch 32
 SEED = 0
 NMS_N = 512
+NMS_LARGE_N = 4096                   # the NMS kernel's path with the mask in device memory
+F32_BATCH, F32_SIZE = 2, 256         # the float32 DySOEM_SimFPN, card against CPU
 # published peaks of one H100 SXM: bytes/s of device memory, dense bf16 on the
 # tensor cores, f32 outside them
 HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
@@ -128,6 +143,10 @@ RTOL, ATOL = 1.6e-2, 1e-2
 # correspond to 0.03 to 0.045 in the logit on both models; a wrong tap,
 # channel order or suppression moves logits by whole units.
 LOGIT_TOL = 0.1
+# a float32 model on the card against the same model on the CPU (TF32 off):
+# the same operations summed in another order, errors of a few f32 ulps
+# carried through the network
+F32_LOGIT_TOL = 1e-3
 
 KERNELS = {
     "stem_l1": ("uavdet_tpu_torch/csrc/stem_l1.cu",
@@ -151,6 +170,8 @@ EXPECTED_LAUNCHES = {
     "DySOEM_SimFPN": {"nms": 1, "dyconv": 3},
     "baseline": {"nms": 1},
     "DyYOLO dual": {"stem_l1": 1, "stem_l2": 1, "nms": 1},
+    "DyYOLO pre_nms_topk 4096": {"stem_l1": 1, "stem_l2": 1, "nms": 1},
+    "DySOEM_SimFPN float32": {"nms": 1},
     "stem_fused op": {"stem_fused": 1},
     # one run of a ladder's entry point: every stage, warm-up included
     "l2_ablate": {"stem_l2_stage": 5 * (LADDER_ITERS + 3)},
@@ -189,6 +210,25 @@ def back_to_back_ms(fn, iters: int = ITERS) -> float:
     """Mean device time of one call among ``iters`` launched back to back."""
     from uavdet_tpu_torch.utils.timing import back_to_back_ms as timed
     return timed(fn, iters, 1)
+
+
+def kernel_row_ms(fn, key: str, iters: int):
+    """Device time of one call's kernels whose name holds ``key``, by
+    ``torch.profiler`` over ``iters`` calls after one warm-up: the kernel
+    alone. None where the profiler records no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and key in e.key)
+    return us / iters / 1e3 if us > 0 else None
 
 
 def nbytes(*tensors) -> int:
@@ -247,7 +287,8 @@ def compare_heads(smoke, outs_k, outs_p) -> None:
                         f"max_abs_err {err:.4g} corr {corr:.6f}")
 
 
-def compare_detections(smoke, d, plain) -> None:
+def compare_detections(smoke, d, plain, logit_tol=LOGIT_TOL,
+                       name="detections vs plain path") -> None:
     import torch
     nk, np_ = d.valid.sum(1), plain.valid.sum(1)
     m = int(torch.minimum(nk, np_).min())
@@ -255,12 +296,12 @@ def compare_detections(smoke, d, plain) -> None:
     count_gap = int((nk - np_).abs().max())
     top = float(plain.scores.max())
     s = min(top, 0.5)
-    limit = LOGIT_TOL * s * (1.0 - s)
-    smoke.check("detections vs plain path",
+    limit = logit_tol * s * (1.0 - s)
+    smoke.check(name,
                 score_err < limit and count_gap <= 0.05 * int(np_.max()),
                 f"valid {nk.tolist()} vs {np_.tolist()}; max |score "
                 f"diff| over the first {m} {score_err:.3g} (limit "
-                f"{limit:.3g}: {LOGIT_TOL} in the logit at the top score "
+                f"{limit:.3g}: {logit_tol} in the logit at the top score "
                 f"{top:.3g})")
 
 
@@ -400,7 +441,9 @@ def main() -> int:
                                             preprocess_dual,
                                             select_detections)
     from uavdet_tpu_torch.models import BASELINE, DYSOEM, DYYOLO
-    from uavdet_tpu_torch.ops.block import (BLOCK_STAGES, fold_block_weights,
+    from uavdet_tpu_torch.ops.block import (BLOCK_EDGE_SHAPES, BLOCK_STAGES,
+                                            fold_block_weights,
+                                            pack_block_weights,
                                             post_stem_block,
                                             post_stem_block_plain)
     from uavdet_tpu_torch.ops.dyconv import (EDGE_SHAPES, dyconv,
@@ -554,6 +597,18 @@ def main() -> int:
                         diff == 0 and same, f"{diff} of {got.numel()} differ; "
                         f"{int(got.sum())} survivors; batched_nms equal "
                         f"{same}")
+        # the shape timed past 1024 boxes, checked once here
+        b, n = BATCH, NMS_LARGE_N
+        eb, es = (torch.from_numpy(a).to(dev)
+                  for a in nms_edge_case("crowded", b, n, rng))
+        order = torch.argsort(-es, dim=1, stable=True)
+        big = torch.gather(eb, 1, order[..., None].expand(-1, -1, 4))
+        got = nms_alive(big, 0.5)
+        diff = int((got != nms_alive_plain(big, 0.5)).sum())
+        smoke.check(f"nms ({b}, {n}) bitwise", diff == 0,
+                    f"{diff} of {got.numel()} differ; {int(got.sum())} "
+                    "survivors")
+        inputs["nms_large"] = big.contiguous()
         # csrc/nms.cu: 5 f32 operations per box area, 14 per IoU of a pair
         # (i, j > i): 4 min/max, 2 differences, 2 clamps, 1 product, the
         # union's sum and difference, its clamp, the quotient, the compare
@@ -745,19 +800,29 @@ def main() -> int:
              ("bound_ms", "bound_by", "bytes", "operations")})
         run_ladder("l2_ablate", l2_ablate, L2_STAGES)
 
-    def check_block(label, x, w1, k2, k3):
-        got = post_stem_block(x, w1, k2, k3)
+    def check_block(label, x, w1, k2, k3, packed=None):
+        """The kernel (on the packed weights where given) against its plain
+        version, and a second launch bitwise equal to the first."""
+        ws = packed if packed is not None else (w1, k2, k3)
+        got = post_stem_block(x, *ws)
         want = post_stem_block_plain(x, w1, k2, k3)
-        return compare_bf16(smoke, f"post_stem_block {label} "
-                            f"{tuple(x.shape)} -> {tuple(got.shape)}", got,
-                            want)
+        err = compare_bf16(smoke, f"post_stem_block {label} "
+                           f"{tuple(x.shape)} -> {tuple(got.shape)}", got,
+                           want)
+        smoke.check(f"post_stem_block {label} twice on the same input",
+                    torch.equal(post_stem_block(x, *ws), got), "bitwise")
+        return got, err
 
     @torch.inference_mode()
     def kernel_g():
         w1, k2, k3 = fold_block_weights(model)
+        packed = pack_block_weights(w1, k2, k3)
         x = stem_l2(*inputs["l2"])        # what the block sees in DyYOLO
-        inputs["block"] = (x, w1, k2, k3)
-        err = check_block("DyYOLO's weights", x, w1, k2, k3)
+        inputs["block"] = (x, packed)
+        got, err = check_block("DyYOLO's weights", x, w1, k2, k3, packed)
+        smoke.check("post_stem_block packed once == packed per call",
+                    torch.equal(post_stem_block(x, w1, k2, k3), got),
+                    "bitwise")
         smoke.stats["post_stem_block"]["max_abs_err"] = err
         b, h, w, _ = x.shape
         ho, wo = (h + 1) // 2, (w + 1) // 2
@@ -767,13 +832,17 @@ def main() -> int:
             2 * b * (h * w * (64 * 32 + 288 * 64) + ho * wo * 576 * 128),
             BF16_FLOPS))
         odd = torch.randn((2, 37, 45, 64), generator=gen, device=dev)
-        check_block("odd", odd.to(torch.bfloat16), w1, k2, k3)
+        check_block("odd", odd.to(torch.bfloat16), w1, k2, k3, packed)
+        for shape in BLOCK_EDGE_SHAPES:
+            edge = torch.randn((*shape, 64), generator=gen, device=dev)
+            check_block("edge", edge.to(torch.bfloat16), w1, k2, k3, packed)
         # biases of the size of the activations: with leaky(bias) in place
         # of zero outside the image, every border output would be off
         small = torch.randn((3, 16, 24, 64), generator=gen, device=dev)
         big = [torch.cat([k[:, :-1], torch.full_like(k[:, -1:], v)], dim=1)
                for k, v in ((w1, 1.0), (k2, -1.5), (k3, 0.5))]
-        check_block("border, large biases", small.to(torch.bfloat16), *big)
+        check_block("border, large biases", small.to(torch.bfloat16), *big,
+                    pack_block_weights(*big))
         run_ladder("block_ablate", block_ablate, BLOCK_STAGES)
 
     smoke.phase("5e kernel E", kernel_e)
@@ -902,6 +971,62 @@ def main() -> int:
     smoke.phase("7b main path 3: BaselineModel", main_path_baseline)
     smoke.phase("7c main path 4: DyYOLO dual-stream", main_path_dual)
 
+    topk = NMS_LARGE_N
+    topk_detect = make_detector(model, DYYOLO, SIZE, pre_nms_topk=topk)
+
+    @torch.inference_mode()
+    def main_path_topk():
+        """More candidates than a cluster's shared memory holds (25,200 at
+        640 px): the NMS kernel keeps its mask in device memory."""
+        requests = [uint8_frames(BATCH, (SIZE, SIZE))
+                    for _ in range(REQUESTS)]
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        results = [topk_detect(r) for r in requests]
+        torch.cuda.synchronize()
+        count_launches(smoke, kernels, "DyYOLO pre_nms_topk 4096", REQUESTS)
+        check_requests(smoke, results, BATCH)
+        fast = detector_stem_fast_path(model)
+        outs = fast.tail(fast.stem(requests[0]))
+        scales = [SIZE // o.obj.shape[2] for o in outs]
+        boxes, scores = decode_topk_global(outs, anchors, scales, topk)
+        smoke.check("pre_nms_topk candidates", boxes.shape[1] == topk,
+                    f"{tuple(boxes.shape)}")
+        plain = select_detections(boxes, scores, 0.001, 0.5, 300,
+                                  alive_fn=nms_alive_plain)
+        compare_detections(smoke, results[0], plain)
+
+    t0 = time.perf_counter()
+    f32_model = seeded_model("DySOEM_SimFPN", DYSOEM, SEED,
+                             dtype=torch.float32)
+    f32_cpu = seeded_model("DySOEM_SimFPN", DYSOEM, SEED, "cpu",
+                           torch.float32)
+    print(f"model: DySOEM_SimFPN full width, float32, on the card and on "
+          f"the CPU, built in {time.perf_counter() - t0:.1f} s")
+
+    @torch.inference_mode()
+    def main_path_soem_f32():
+        """No kernel claims a float32 SOEM: the grouped conv serves it (TF32
+        off, as set above), held against the CPU."""
+        detect_f32 = make_detector(f32_model, DYSOEM, F32_SIZE,
+                                   compute_dtype=torch.float32)
+        requests = [uint8_frames(F32_BATCH, (F32_SIZE, F32_SIZE))
+                    for _ in range(REQUESTS)]
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        results = [detect_f32(r) for r in requests]
+        torch.cuda.synchronize()
+        count_launches(smoke, kernels, "DySOEM_SimFPN float32", REQUESTS)
+        check_requests(smoke, results, F32_BATCH)
+        cpu = make_detector(f32_cpu, DYSOEM, F32_SIZE,
+                            compute_dtype=torch.float32)(requests[0].cpu())
+        cpu = type(cpu)(*(t.to(dev) for t in cpu))
+        compare_detections(smoke, results[0], cpu, F32_LOGIT_TOL,
+                           "float32 detections on the card vs the CPU")
+
+    smoke.phase("7d main path 5: DyYOLO, pre_nms_topk 4096", main_path_topk)
+    smoke.phase("7e main path 6: DySOEM_SimFPN float32", main_path_soem_f32)
+
     def time_pair(name, kern, plain, lib, iters=ITERS, warmup=WARMUP,
                   plain_iters=ITERS, plain_warmup=WARMUP):
         """Kernel and plain version in turns, so that neither side owns the
@@ -956,11 +1081,17 @@ def main() -> int:
         smoke.stats["stem_l2_stage"].update(time_pair(
             "stem_l2_stage full", lambda: stem_l2_stage(a1, k2, "full"),
             lambda: stem_l2_plain(a1, k2), library_stem(a1, k2, 2)))
-        xb, w1, kk2, kk3 = inputs["block"]
+        xb, packed = inputs["block"]
+        augs = [p.aug for p in packed]
         smoke.stats["post_stem_block"].update(time_pair(
-            "post_stem_block", lambda: post_stem_block(xb, w1, kk2, kk3),
-            lambda: post_stem_block_plain(xb, w1, kk2, kk3),
-            library_block(xb, w1, kk2, kk3)))
+            "post_stem_block (weights packed once)",
+            lambda: post_stem_block(xb, *packed),
+            lambda: post_stem_block_plain(xb, *augs),
+            library_block(xb, *augs)))
+        row = kernel_row_ms(lambda: post_stem_block(xb, *packed),
+                            "post_stem_block_kernel", ITERS)
+        smoke.stats["post_stem_block"]["profiler_row_ms"] = row
+        print(f"  the kernel alone (profiler row): {row} ms {tag}")
         res, down = model.layers[2], model.layers[3]
         xn = xb.permute(0, 3, 1, 2)
         eager = cuda_ms(lambda: down(res(xn)))
@@ -971,6 +1102,20 @@ def main() -> int:
         smoke.stats["nms"].update(time_pair(
             "nms", lambda: nms_alive(boxes_s, 0.5),
             lambda: nms_alive_plain(boxes_s, 0.5), None))
+        # past 1024 boxes: the mask in device memory, two launches
+        big = inputs["nms_large"]
+        large = time_pair(f"nms {tuple(big.shape[:2])} (mask in device "
+                          "memory)", lambda: nms_alive(big, 0.5),
+                          lambda: nms_alive_plain(big, 0.5), None)
+        large["profiler_row_ms"] = kernel_row_ms(
+            lambda: nms_alive(big, 0.5), "nms_", ITERS)
+        b, n = big.shape[:2]
+        large.update(bound(nbytes(big) + b * n,
+                           b * (5 * n + 14 * n * (n - 1) // 2), F32_FLOPS),
+                     shape=[b, n])
+        print(f"  the two kernels alone (profiler rows): "
+              f"{large['profiler_row_ms']} ms {tag}")
+        smoke.stats["nms"]["large"] = large
         one = boxes_s[:1].contiguous()   # BaselineModel's launch
         extra = {
             "ms_batch_1": cuda_ms(lambda: nms_alive(one, 0.5)),

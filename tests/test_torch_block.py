@@ -23,10 +23,13 @@ from uavdet_tpu.models.layers import CNNBlock as JaxCNNBlock
 from uavdet_tpu.models.layers import ResidualBlock as JaxResidualBlock
 from uavdet_tpu.utils.torch_import import import_interpreter_state_dict
 from uavdet_tpu_torch.models import BASELINE, BaselineModel, DyYOLO
-from uavdet_tpu_torch.ops.block import (BLOCK_STAGES, fold_block_weights,
-                                        fold_cnnblock, post_stem_block,
+from uavdet_tpu_torch.ops.block import (BLOCK_EDGE_SHAPES, BLOCK_STAGES,
+                                        PackedConv, _post_stem_block_cuda,
+                                        fold_block_weights,
+                                        fold_cnnblock, pack_block_weights,
+                                        post_stem_block,
                                         post_stem_block_plain,
-                                        post_stem_block_stage)
+                                        post_stem_block_stage, sw64_image)
 from uavdet_tpu_torch.scripts import block_ablate, l2_ablate
 from uavdet_tpu_torch.utils.seeding import init_weights
 
@@ -77,6 +80,119 @@ def test_block_matches_flax_layers(rng, stem_model, shape):
     got = got.float().numpy()
     np.testing.assert_allclose(got, want, rtol=0.05, atol=0.05)
     assert np.corrcoef(got.ravel(), want.ravel())[0, 1] > 0.9999
+
+
+def _flax_block(stem_model, x):
+    """flax's ResidualBlock(64) + CNNBlock(128, 3x3, s2), f32, with the
+    model's weights bridged, on bf16 frames x."""
+    params, stats = (tree["net"] for tree in import_interpreter_state_dict(
+        {k: v.numpy() for k, v in stem_model.state_dict().items()}, STEM_CFG))
+    y = JaxResidualBlock(64, num_repeats=1).apply(
+        {"params": params["ResidualBlock_0"],
+         "batch_stats": stats["ResidualBlock_0"]},
+        jnp.asarray(x.float().numpy()), False)
+    return np.asarray(JaxCNNBlock(128, (3, 3), (2, 2), 1).apply(
+        {"params": params["CNNBlock_0"], "batch_stats": stats["CNNBlock_0"]},
+        y, False))
+
+
+@pytest.mark.parametrize("shape", BLOCK_EDGE_SHAPES,
+                         ids=["-".join(map(str, s)) for s in BLOCK_EDGE_SHAPES])
+def test_block_edge_shapes_match_flax_layers(rng, stem_model, shape):
+    """The plain version at every shape the smoke test also holds the
+    kernel to (sizes off its 8 x 8 output tile, one pixel, H = 2, W = 1, a
+    part-full last round of its persistent grid, odd batches), packed once,
+    against the flax layers: the tolerance of the test above."""
+    x = _frames(rng, (*shape, 64))
+    want = _flax_block(stem_model, x)
+    got = post_stem_block(x, *pack_block_weights(
+        *fold_block_weights(stem_model)))
+    b, h, w = shape
+    assert got.shape == (b, (h + 1) // 2, (w + 1) // 2, 128) == want.shape
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0.05,
+                               atol=0.05)
+
+
+def test_block_edge_shapes_straddle_the_kernel_layout():
+    """The tuple the smoke test also reads: H and W off the 16 input pixels
+    of a tile, one pixel, H = 2, W = 1, an odd batch, and a tile count that
+    leaves the grid's last round (at most 66 clusters) part-full."""
+    hs = [h for _, h, _ in BLOCK_EDGE_SHAPES]
+    ws = [w for _, _, w in BLOCK_EDGE_SHAPES]
+    assert (1, 1, 1) in BLOCK_EDGE_SHAPES and 2 in hs and 1 in ws
+    assert any(h % 16 and w % 16 for _, h, w in BLOCK_EDGE_SHAPES)
+    assert any(b % 2 for b, _, _ in BLOCK_EDGE_SHAPES)
+    tiles = [b * -(-((h + 1) // 2) // 8) * -(-((w + 1) // 2) // 8)
+             for b, h, w in BLOCK_EDGE_SHAPES]
+    assert any(t > 2 * 66 and t % 66 for t in tiles)
+
+
+def test_sw64_image_is_the_swizzled_layout(rng):
+    """Element (k, n) of a (K, 32) matrix lands at byte (k // 8) * 512 +
+    (k % 8) * 64 + ((n // 8) ^ ((k % 8) // 2)) * 16 + (n % 8) * 2: the
+    64-byte swizzle of 8-row atoms that ``csrc/wgmma.cuh`` describes."""
+    kn = torch.from_numpy(rng.normal(size=(24, 32)).astype(np.float32))
+    image = sw64_image(kn).numpy()
+    for k in range(24):
+        for n in range(32):
+            at = ((k // 8) * 512 + (k % 8) * 64
+                  + ((n // 8) ^ ((k % 8) // 2)) * 16 + (n % 8) * 2) // 2
+            assert image[at] == kn[k, n]
+    assert sorted(image.tolist()) == sorted(kn.flatten().tolist())
+
+
+def test_packed_weights_are_the_matrices_form(rng, stem_model):
+    """``pack_block_weights``: the operands split over the two blocks of a
+    cluster as the kernel reads them (k2 by output channel, k3 by input
+    channel), and ``post_stem_block`` on them bitwise what it gives on the
+    (O, K + 1) matrices."""
+    ws = fold_block_weights(stem_model)
+    packed = pack_block_weights(*ws)
+    assert all(isinstance(p, PackedConv) for p in packed)
+    assert [tuple(p.image.shape) for p in packed] == [(2048,), (2, 9216),
+                                                      (2, 36864)]
+    assert [tuple(p.bias.shape) for p in packed] == [(32,), (2, 32), (2, 64)]
+    assert all(p.image.dtype == torch.bfloat16 and p.bias.dtype
+               == torch.float32 for p in packed)
+    # rank r of k3 holds the K rows of y's channels [32 r, 32 r + 32) of
+    # every tap, for the 128 outputs in four slices of 32; its bias the 64
+    # output channels the block finishes
+    k3q = ws[2].to(torch.bfloat16)
+    for r in range(2):
+        rows = [tap * 64 + 32 * r + c for tap in range(9) for c in range(32)]
+        for s in range(4):
+            assert torch.equal(packed[2].image[r, 9216 * s:9216 * (s + 1)],
+                               sw64_image(k3q[32 * s:32 * s + 32, rows].t()))
+        assert torch.equal(packed[2].bias[r], k3q[64 * r:64 * r + 64,
+                                                  -1].float())
+    k2q = ws[1].to(torch.bfloat16)
+    for r in range(2):
+        assert torch.equal(packed[1].image[r],
+                           sw64_image(k2q[32 * r:32 * r + 32, :-1].t()))
+    x = _frames(rng, (2, 11, 19, 64))
+    assert torch.equal(post_stem_block(x, *packed), post_stem_block(x, *ws))
+    assert torch.equal(post_stem_block_stage(x, *packed, "full"),
+                       post_stem_block_plain(x, *ws))
+
+
+def test_block_kernel_wrapper_rules(rng, stem_model):
+    """The kernel's wrapper raises before any launch on operands the kernel
+    does not take: x of another width or dtype, a matrix of another shape,
+    packed operands of another shape or dtype."""
+    ws = fold_block_weights(stem_model)
+    packed = pack_block_weights(*ws)
+    x = _frames(rng, (1, 8, 8, 64))
+    with pytest.raises(ValueError, match="bfloat16"):
+        _post_stem_block_cuda(x.float(), *packed, 3)
+    with pytest.raises(ValueError, match=r"\(64, 289\)"):
+        _post_stem_block_cuda(x, ws[0], ws[1][:, 1:], ws[2], 3)
+    short = packed[2]._replace(image=packed[2].image[:, 1:])
+    with pytest.raises(ValueError, match=r"k3: packed operands must be "
+                                         r"\(2, 36864\) bfloat16"):
+        _post_stem_block_cuda(x, packed[0], packed[1], short, 3)
+    wide = packed[0]._replace(bias=packed[0].bias.double())
+    with pytest.raises(ValueError, match="w1: packed operands"):
+        _post_stem_block_cuda(x, wide, packed[1], packed[2], 3)
 
 
 def test_block_matches_the_models_own_layers(rng, stem_model):

@@ -319,18 +319,76 @@ def test_default_dtype_is_bf16_on_the_card_and_f32_elsewhere():
         == torch.float32
 
 
-@pytest.mark.parametrize("dtype,error,match", [
-    (torch.float32, RuntimeError, "dtype=torch.bfloat16"),
-    (torch.bfloat16, ValueError, "no dyconv kernel for device meta")])
-def test_soem_off_the_cpu_serves_through_the_kernel_or_raises(dtype, error,
-                                                              match):
-    """Off the CPU an eval-mode SOEM never gives way to the grouped conv: a
-    float32 module raises and names the dtype to build with; a bf16 module
-    reaches the ``dyconv`` dispatcher (which has no kernel for the meta
-    device, and says so). Training keeps the grouped conv on any device."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_soem_off_the_cpu_serves_through_the_kernel_or_raises(dtype):
+    """Off the CPU an eval-mode bf16 SOEM with 3x3 experts reaches the
+    ``dyconv`` dispatcher (which has no kernel for the meta device, and says
+    so) and with other experts raises; a float32 SOEM, which no kernel
+    claims, serves through the grouped conv. Training takes the grouped conv
+    whatever the dtype."""
     soem = DynamicSOEM(8).to(device="meta", dtype=dtype).eval()
     x = torch.empty((2, 8, 8, 8), device="meta", dtype=dtype)
-    with pytest.raises(error, match=match):
-        soem(x, 30.0)
-    if dtype == torch.float32:
-        assert soem.train()(x, 30.0).shape == (2, 4, 4, 16)
+    if dtype == torch.bfloat16:
+        with pytest.raises(ValueError, match="no dyconv kernel for device meta"):
+            soem(x, 30.0)
+        one = DynamicSOEM(8, dy_kernel_size=1).to(device="meta",
+                                                  dtype=dtype).eval()
+        with pytest.raises(RuntimeError, match="takes 3x3 experts"):
+            one(x, 30.0)
+    else:
+        assert soem(x, 30.0).shape == (2, 4, 4, 16)
+    assert soem.train()(x, 30.0).shape == (2, 4, 4, 16)
+
+
+def _soem_flax_variables(soem):
+    """The flax variables of one DynamicSOEM holding the port module's
+    weights (numpy, f32)."""
+    sd = {k: v.float().numpy() for k, v in soem.state_dict().items()
+          if v.is_floating_point()}
+    return {"params": {
+        "attn_fc1": {"kernel": sd["attn_fc1.weight"].T.copy(),
+                     "bias": sd["attn_fc1.bias"]},
+        "attn_fc2": {"kernel": sd["attn_fc2.weight"].T.copy(),
+                     "bias": sd["attn_fc2.bias"]},
+        "experts": {"kernel": sd["experts.kernel"],
+                    "bias": sd["experts.bias"]},
+        "BatchNorm_0": {"scale": sd["bn.weight"], "bias": sd["bn.bias"]}},
+        "batch_stats": {"BatchNorm_0": {"mean": sd["bn.running_mean"],
+                                        "var": sd["bn.running_var"]}}}
+
+
+@pytest.mark.parametrize("c,hw", [(8, 12), (16, 8)])
+def test_bf16_soem_trains_like_flax(rng, c, hw):
+    """A bf16 DynamicSOEM in training mode (the grouped conv, BatchNorm on
+    the batch's statistics) against flax's ``apply(..., train=True)`` in
+    bf16 on the same bf16-representable weights, and its backward runs.
+    Both sides round to bf16 at other places (the port mixes the experts'
+    kernel before the conv, flax contracts after it): rtol 0.05, atol 0.05
+    on BN-normalised values of order one, the bound of the bf16 DySOEM
+    test above."""
+    soem = DynamicSOEM(c)
+    with torch.no_grad():   # bf16 values, BN's scale and bias near 1 and 0
+        for name, t in soem.named_parameters():
+            w = rng.normal(size=t.shape) * (0.1 if "bias" in name else 0.3)
+            if name == "bn.weight":
+                w = 1.0 + w
+            t.copy_(torch.from_numpy(w).to(torch.bfloat16).float())
+    v = _soem_flax_variables(soem)
+    soem = soem.to(torch.bfloat16).train()
+    x = rng.normal(size=(2, hw, hw, c)).astype(np.float32)
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    want, _ = jax_dysoem.DynamicSOEM(in_channels=c, dtype=jnp.bfloat16).apply(
+        v, jnp.asarray(xb.float().numpy(), jnp.bfloat16), 30.0, train=True,
+        mutable=["batch_stats"])
+    kernel_before = kernels.launch_counts()["dyconv"]
+    got = soem(xb.requires_grad_(), 30.0)
+    assert got.dtype == torch.bfloat16
+    assert got.shape == want.shape == (2, hw // 2, hw // 2, 2 * c)
+    np.testing.assert_allclose(got.detach().float().numpy(),
+                               np.asarray(want, np.float32),
+                               rtol=0.05, atol=0.05)
+    got.float().square().mean().backward()
+    grad = soem.experts.kernel.grad
+    assert grad is not None and bool(torch.isfinite(grad.float()).all())
+    assert float(grad.float().abs().max()) > 0
+    assert kernels.launch_counts()["dyconv"] == kernel_before

@@ -1,4 +1,5 @@
-"""The probe of kernels A and C (uavdet_tpu_torch/scripts/kernel_probe.py):
+"""The probe of kernels A, C and G
+(uavdet_tpu_torch/scripts/kernel_probe.py):
 its variants are pieces of text replaced in copies of the CUDA sources, so
 every piece must still be in the sources, and its command line must work
 where there is no GPU."""
@@ -12,7 +13,8 @@ from uavdet_tpu_torch import kernels
 from uavdet_tpu_torch.scripts import kernel_probe
 
 VARIANTS = [(f"A-{k}", v) for k, v in kernel_probe.A_VARIANTS.items()] \
-    + [(f"C-{k}", v) for k, v in kernel_probe.C_VARIANTS.items()]
+    + [(f"C-{k}", v) for k, v in kernel_probe.C_VARIANTS.items()] \
+    + [(f"G-{k}", v) for k, v in kernel_probe.G_VARIANTS.items()]
 
 
 @pytest.mark.parametrize("subs", [v for _, v in VARIANTS],
@@ -39,6 +41,10 @@ def test_variants_cover_what_the_notes_name():
     for name in ("base", "storeonly", "nosilu", "nosums", "stcs", "tanh"):
         assert name in kernel_probe.A_VARIANTS
         assert f"  {name}" in kernel_probe.__doc__
+    for name in ("base", "sets2", "sets4", "noremote", "noexchange",
+                 "nostore"):
+        assert name in kernel_probe.G_VARIANTS
+        assert f"  {name}" in kernel_probe.__doc__ or name.startswith("sets")
     assert "cluster8_threads512" in kernel_probe.C_VARIANTS
     assert len(kernel_probe.C_VARIANTS) == 9
 

@@ -12,11 +12,13 @@ import torch
 import jax.numpy as jnp
 
 from uavdet_tpu.ops.boxes import box_iou_pairwise as jax_iou
+from uavdet_tpu.ops.nms import batched_nms as jax_batched_nms
 from uavdet_tpu.ops.nms import nms as jax_nms
 from uavdet_tpu.ops.pallas_nms import pallas_nms_alive
 from uavdet_tpu_torch import kernels
 from uavdet_tpu_torch.ops.boxes import box_iou_pairwise
-from uavdet_tpu_torch.ops.nms import (MAX_BOXES, NMS_EDGE_CASES,
+from uavdet_tpu_torch.ops.nms import (MAX_BOXES, MAX_BOXES_LARGE,
+                                      NMS_EDGE_CASES,
                                       _nms_alive_cuda, batched_nms, nms,
                                       nms_alive, nms_alive_plain,
                                       nms_edge_case)
@@ -104,9 +106,11 @@ def _ids(case):
 def test_nms_edge_cases_straddle_the_kernel_layout():
     """The tuple the smoke test also reads: sizes on both sides of a 64-rank
     mask word, not multiples of the 8 blocks of a cluster, the detector's
-    shape and the largest the kernel takes."""
+    shape, the largest the shared-memory mask takes and one past it, and
+    mask rows of 32 and of 64 words (the walk's lanes hold one or two)."""
     sizes = [n for _, _, n in NMS_EDGE_CASES]
     assert 1 in sizes and MAX_BOXES in sizes and 512 in sizes
+    assert MAX_BOXES + 1 in sizes and 2048 in sizes and 4096 in sizes
     assert any(n % 64 == 63 for n in sizes) and any(n % 64 == 1 for n in sizes)
     assert any(n % 8 and n % 64 for n in sizes)
     assert {"crowded", "identical", "disjoint"} == {k for k, _, _
@@ -116,7 +120,15 @@ def test_nms_edge_cases_straddle_the_kernel_layout():
         nms_edge_case("sparse", 1, 8, np.random.default_rng(0))
 
 
-@pytest.mark.parametrize("case", NMS_EDGE_CASES, ids=_ids)
+def _small(cases):
+    return [c for c in cases if c[2] <= MAX_BOXES]
+
+
+def _large(cases):
+    return [c for c in cases if c[2] > MAX_BOXES]
+
+
+@pytest.mark.parametrize("case", _small(NMS_EDGE_CASES), ids=_ids)
 def test_nms_alive_plain_edge_cases_match_jax(rng, case):
     """The plain version at every edge case against the JAX package's NMS,
     image by image: order, survivor mask and kept indices, bitwise."""
@@ -141,7 +153,7 @@ def test_nms_alive_plain_edge_cases_match_jax(rng, case):
         assert (survivors > 0).all() and (survivors < n - n // 10).all()
 
 
-@pytest.mark.parametrize("case", [c for c in NMS_EDGE_CASES
+@pytest.mark.parametrize("case", [c for c in _small(NMS_EDGE_CASES)
                                   if c[2] % 128 == 0], ids=_ids)
 def test_nms_alive_plain_edge_cases_match_pallas_kernel(rng, case):
     """Where the TPU kernel takes N (whole lanes of 128): the survivor mask
@@ -156,10 +168,32 @@ def test_nms_alive_plain_edge_cases_match_pallas_kernel(rng, case):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("case", _large(NMS_EDGE_CASES), ids=_ids)
+def test_nms_alive_plain_large_cases_match_jax_batched_nms(rng, case):
+    """Past ``MAX_BOXES`` (the kernel's path with the mask in device
+    memory): the plain version against the XLA NMS the JAX detector runs,
+    ``uavdet_tpu.ops.nms.batched_nms``: order, survivor mask and kept
+    indices, bitwise. (The Pallas kernel in interpret mode is too slow at
+    these sizes.)"""
+    kind, b, n = case
+    boxes, scores = nms_edge_case(kind, b, n, rng)
+    keep, alive, order = batched_nms(torch.from_numpy(boxes),
+                                     torch.from_numpy(scores), 0.5, 300,
+                                     alive_fn=nms_alive_plain)
+    j_keep, j_alive, j_order = jax_batched_nms(jnp.asarray(boxes),
+                                               jnp.asarray(scores), 0.5, 300)
+    np.testing.assert_array_equal(order.numpy(), np.asarray(j_order))
+    np.testing.assert_array_equal(alive.numpy(), np.asarray(j_alive))
+    np.testing.assert_array_equal(keep.numpy(), np.asarray(j_keep))
+    survivors = alive.sum(dim=1)
+    assert (survivors > 0).all() and (survivors < n - n // 10).all()
+
+
 def test_nms_kernel_wrapper_rules(rng):
     """The kernel's wrapper raises before any launch on what the kernel does
     not take, whatever the device: another dtype or last dimension, no box
-    or more than ``MAX_BOXES``, no image, boxes off a 16-byte boundary."""
+    or more than ``MAX_BOXES_LARGE``, no image, boxes off a 16-byte
+    boundary; the stamped measuring kernel past ``MAX_BOXES``."""
     boxes = torch.zeros((2, 64, 4))
     with pytest.raises(ValueError, match="float32"):
         _nms_alive_cuda(boxes.double(), 0.5)
@@ -167,10 +201,13 @@ def test_nms_kernel_wrapper_rules(rng):
         _nms_alive_cuda(boxes.to(torch.bfloat16), 0.5)
     with pytest.raises(ValueError, match=r"\(B, N, 4\)"):
         _nms_alive_cuda(torch.zeros((2, 64, 5)), 0.5)
-    with pytest.raises(ValueError, match="1 to 1024 boxes"):
+    with pytest.raises(ValueError, match=f"1 to {MAX_BOXES_LARGE} boxes"):
         _nms_alive_cuda(torch.zeros((2, 0, 4)), 0.5)
-    with pytest.raises(ValueError, match="1 to 1024 boxes"):
-        _nms_alive_cuda(torch.zeros((1, MAX_BOXES + 1, 4)), 0.5)
+    with pytest.raises(ValueError, match=f"1 to {MAX_BOXES_LARGE} boxes"):
+        _nms_alive_cuda(torch.zeros((1, MAX_BOXES_LARGE + 1, 4)), 0.5)
+    with pytest.raises(ValueError, match="stamped kernel"):
+        _nms_alive_cuda(torch.zeros((1, MAX_BOXES + 1, 4)), 0.5,
+                        torch.zeros((1, 3), dtype=torch.int64))
     with pytest.raises(ValueError, match="at least one image"):
         _nms_alive_cuda(torch.zeros((0, 64, 4)), 0.5)
     off = torch.zeros(2 * 64 * 4 + 1)[1:].view(2, 64, 4)
@@ -184,7 +221,7 @@ def test_nms_kernel_wrapper_rules(rng):
 
 def test_cpu_nms_handles_what_the_kernel_refuses():
     """On the CPU the plain version runs: it takes N = 0 and more boxes than
-    the kernel holds, and launches no kernel."""
+    a cluster's shared memory holds, and launches no kernel."""
     assert nms_alive(torch.zeros((2, 0, 4)), 0.5).shape == (2, 0)
     n = MAX_BOXES + 32
     xy = torch.arange(n, dtype=torch.float32)[None, :, None] * 50.0

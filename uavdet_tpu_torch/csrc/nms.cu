@@ -39,6 +39,16 @@
 //     final cluster barrier keeps every block's shared memory alive until the
 //     walk is done.
 //   36 KB of static shared memory per block: no attribute to set per launch.
+// Above MAX_N boxes an image's mask no longer fits a cluster's shared memory
+// (N = 4096 is 2 MB), and two kernels take its place, with the mask rows in
+// device memory (B x N x ceil(N/64) words, scratch from the caller):
+//   nms_mask_kernel fills them with the same row-per-warp ballot, rows dealt
+//     round-robin over as many blocks per image as fill the card twice, the
+//     boxes read through the L1 cache;
+//   nms_walk_kernel, one warp per image, walks them with the same 64-rank
+//     register walk, the diagonal words a step ahead and the surviving rows
+//     OR-ed in by 16 independent loads at a time, now from the L2 cache; the
+//     removed words live in shared memory, a lane per later word.
 //
 // The IoU follows uavdet_tpu/ops/boxes.py (_area, box_iou_pairwise) operation
 // by operation, with explicitly rounded intrinsics so that nvcc cannot contract
@@ -189,6 +199,101 @@ nms_kernel(const float4* __restrict__ boxes, uint8_t* __restrict__ alive, int N,
   cluster_sync();  // no block leaves while its rows may still be read
 }
 
+// ---- above MAX_N: the mask in device memory ----
+
+constexpr int BIG_THREADS = 512;
+constexpr int BIG_WARPS = BIG_THREADS / 32;
+constexpr int BIG_BLOCKS = 264;  // blocks over all images: two per SM of an H100
+
+// Rows r, r + G, r + 2G, .. of image blockIdx.y's mask (G = gridDim.x), a
+// warp per row, into mask[b][i][w] for the words w >= i / 64 (the walk reads
+// no other word of row i).
+__global__ void __launch_bounds__(BIG_THREADS)
+nms_mask_kernel(const float4* __restrict__ boxes, u64* __restrict__ mask, int N, float thr) {
+  const int b = blockIdx.y;
+  const int lane = threadIdx.x % 32;
+  const int words = (N + 63) / 64;
+  const float4* bb = boxes + static_cast<size_t>(b) * N;
+  u64* mb = mask + static_cast<size_t>(b) * N * words;
+  for (int i = blockIdx.x + gridDim.x * (threadIdx.x / 32); i < N; i += gridDim.x * BIG_WARPS) {
+    const float4 a = bb[i];
+    const float area_i = box_area(a);
+    for (int w = i / 64; w < words; ++w) {
+      unsigned bits[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int j = 64 * w + 32 * h + lane;
+        bool over = false;
+        if (j > i && j < N) {
+          const float4 c = bb[j];
+          const float iw = fmaxf(__fsub_rn(fminf(a.z, c.z), fmaxf(a.x, c.x)), 0.0f);
+          const float ih = fmaxf(__fsub_rn(fminf(a.w, c.w), fmaxf(a.y, c.y)), 0.0f);
+          const float inter = __fmul_rn(iw, ih);
+          const float uni = __fsub_rn(__fadd_rn(area_i, box_area(c)), inter);
+          over = __fdiv_rn(inter, fmaxf(uni, 1e-7f)) > thr;
+        }
+        bits[h] = __ballot_sync(FULL, over);
+      }
+      if (lane == 0) mb[static_cast<size_t>(i) * words + w] = (static_cast<u64>(bits[1]) << 32) | bits[0];
+    }
+  }
+}
+
+// One warp per image: the walk of nms_kernel over rows in device memory.
+// s_removed[w]: the ranks [64 w, 64 w + 64) removed by the survivors so far.
+__global__ void __launch_bounds__(32)
+nms_walk_kernel(const u64* __restrict__ mask, uint8_t* __restrict__ alive, int N) {
+  extern __shared__ u64 s_removed[];
+  const int b = blockIdx.x;
+  const int lane = threadIdx.x;
+  const int words = (N + 63) / 64;
+  const u64* mb = mask + static_cast<size_t>(b) * N * words;
+  for (int w = lane; w < words; w += 32) s_removed[w] = 0ull;
+  __syncwarp();
+  // the diagonal words of ranks 64 w + lane and 64 w + 32 + lane
+  auto diagonal = [&](int w, int h) -> u64 {
+    const int k = 64 * w + 32 * h + lane;
+    if (w >= words || k >= N) return 0ull;
+    return mb[static_cast<size_t>(k) * words + w];
+  };
+  uint8_t* out = alive + static_cast<size_t>(b) * N;
+  u64 next[2] = {diagonal(0, 0), diagonal(0, 1)};
+  for (int w = 0; w < words; ++w) {
+    const u64 diag[2] = {next[0], next[1]};
+    next[0] = diagonal(w + 1, 0);
+    next[1] = diagonal(w + 1, 1);
+    u64 rem = s_removed[w];
+#pragma unroll
+    for (int k = 0; k < 64; ++k) {
+      const u64 row = __shfl_sync(FULL, diag[k / 32], k % 32);
+      if (((rem >> k) & 1ull) == 0ull) rem |= row;
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = 64 * w + 32 * h + lane;
+      if (i < N) out[i] = static_cast<uint8_t>(((rem >> (32 * h + lane)) & 1ull) ^ 1ull);
+    }
+    if (w + 1 == words) break;  // no later word; ranks past N are never read as rows
+    const u64* rows = mb + static_cast<size_t>(64 * w) * words;
+    for (int w2 = w + 1 + lane; w2 < words; w2 += 32) {
+      u64 acc = 0ull;
+#pragma unroll
+      for (int k0 = 0; k0 < 64; k0 += 16) {
+        u64 v[16];
+#pragma unroll
+        for (int q = 0; q < 16; ++q) {
+          const int k = k0 + q;
+          v[q] = ((rem >> k) & 1ull) == 0ull ? rows[static_cast<size_t>(k) * words + w2] : 0ull;
+        }
+#pragma unroll
+        for (int q = 0; q < 16; ++q) acc |= v[q];
+      }
+      s_removed[w2] |= acc;
+    }
+    __syncwarp();
+  }
+}
+
 template <int MODE>
 int launch(const void* boxes, void* alive, void* stamps, int B, int N, float thr, void* stream) {
   if (N < 1 || N > MAX_N || B < 1 || B > 65535) return static_cast<int>(cudaErrorInvalidValue);
@@ -204,6 +309,27 @@ int launch(const void* boxes, void* alive, void* stamps, int B, int N, float thr
 UAVDET_EXPORT int uavdet_nms_alive(const void* boxes, void* alive, int B, int N, float thr,
                                    void* stream) {
   return launch<RUN>(boxes, alive, nullptr, B, N, thr, stream);
+}
+
+// N > MAX_N boxes per image (and any N >= 1): the same mask through the
+// scratch `mask`, (B, N, ceil(N / 64)) 64-bit words, filled and walked by two
+// kernels on `stream`.
+UAVDET_EXPORT int uavdet_nms_alive_large(const void* boxes, void* alive, void* mask, int B, int N,
+                                         float thr, void* stream) {
+  if (N < 1 || B < 1 || B > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t removed_bytes = 8 * static_cast<size_t>((N + 63) / 64);
+  if (removed_bytes > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int per_image = (BIG_BLOCKS + B - 1) / B;
+  const int row_blocks = per_image < (N + BIG_WARPS - 1) / BIG_WARPS ? per_image
+                                                                    : (N + BIG_WARPS - 1) / BIG_WARPS;
+  nms_mask_kernel<<<dim3(row_blocks, B), BIG_THREADS, 0, s>>>(
+      static_cast<const float4*>(boxes), static_cast<u64*>(mask), N, thr);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  nms_walk_kernel<<<B, 32, removed_bytes, s>>>(static_cast<const u64*>(mask),
+                                                static_cast<uint8_t*>(alive), N);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The same, and stamps (B, 3) int64: the global timer in ns at the image's

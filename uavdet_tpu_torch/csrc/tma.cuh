@@ -1,6 +1,7 @@
 // Hopper's Tensor Memory Accelerator, transaction barriers and thread block
-// clusters, for the kernels that let the hardware copy their tiles (dyconv.cu)
-// or that read another block's shared memory (nms.cu).
+// clusters, for the kernels that let the hardware copy their tiles (dyconv.cu,
+// post_stem_block.cu) or that reach another block's shared memory (nms.cu,
+// post_stem_block.cu).
 //
 // One thread asks for a box of a tensor in device memory; the copy engine
 // computes the addresses, fills what lies outside the tensor with zeros, writes
@@ -76,6 +77,13 @@ __device__ __forceinline__ uint32_t cluster_map_shared(uint32_t addr, uint32_t r
   return r;
 }
 
+// 16 bytes into the cluster's shared window (distributed shared memory).
+__device__ __forceinline__ void st_cluster_v4(uint32_t addr, float a, float b, float c, float d) {
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "f"(a), "f"(b),
+               "f"(c), "f"(d)
+               : "memory");
+}
+
 // 8 bytes from the cluster's shared window (distributed shared memory).
 __device__ __forceinline__ unsigned long long ld_cluster_u64(uint32_t addr) {
   unsigned long long v;
@@ -117,6 +125,33 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   }
 }
 
+// One arrival on the barrier at `addr` in the cluster's shared window (of this
+// block or another), after this thread's earlier writes are visible to the
+// cluster.
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t addr) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(addr)
+               : "memory");
+}
+
+// mbar_wait for a barrier that other blocks of the cluster arrive on: what
+// they wrote before arriving is visible after it. Traps instead of hanging.
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar, uint32_t parity) {
+  for (uint32_t spins = 0;; ++spins) {
+    uint32_t done;
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (spins > (1u << 22)) __trap();
+  }
+}
+
 // Box at coordinates (c0, c1, c2, c3) of a 4-d tensor map into shared memory at
 // `dst` of every block in `cta_mask`; each of their barriers at `bar`'s offset
 // receives the bytes.
@@ -129,6 +164,38 @@ __device__ __forceinline__ void tma_load_4d_multicast(uint32_t dst, const CUtens
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
       "h"(cta_mask)
       : "memory");
+}
+
+// Box at coordinates (c0, c1, c2, c3) of a 4-d tensor map into this block's
+// shared memory at `dst`; the barrier at `bar` receives the bytes.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// The box at `src` in shared memory to coordinates (c0, c1, c2, c3) of a 4-d
+// tensor map; what lies outside the tensor is not written. Completion is
+// tracked per thread in bulk groups (bulk_commit, bulk_wait_read).
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, uint32_t src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// This thread's bulk stores have read their shared memory (it may be rewritten).
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 
 }  // namespace uavdet

@@ -1,5 +1,6 @@
 // Hopper's warpgroup matrix multiply (wgmma, sm_90a only) for the kernels whose
-// product runs at the tensor cores' full rate (dyconv.cu): four warps start one
+// product runs at the tensor cores' full rate (dyconv.cu, post_stem_block.cu):
+// four warps start one
 // asynchronous m64nNk16 bf16 product with f32 sums. A comes from registers, in
 // mma.sync's m16k16 fragment layout per warp (warp w of the warpgroup holds rows
 // 16 w .. 16 w + 15, loaded with ldmatrix); B is read from shared memory through
@@ -52,6 +53,35 @@ __device__ __forceinline__ uint64_t wgmma_desc_sw128(uint32_t addr, uint32_t lbo
   return static_cast<uint64_t>((addr & 0x3ffffu) >> 4) |
          (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
          (static_cast<uint64_t>(1) << 62);
+}
+
+// Descriptor of a 64-byte-swizzled N-major operand (post_stem_block.cu): a block
+// of 32 channels x 8 K rows is 8 rows of 64 bytes (512 bytes, 512-byte aligned);
+// within row r the 16-byte group g lies at position g ^ ((r / 2) % 4). Blocks of
+// the next 8 K rows follow at `sbo`; an operand of 32 channels has no next block
+// of channels, so the leading byte offset is not read.
+__device__ __forceinline__ uint64_t wgmma_desc_sw64(uint32_t addr, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3ffffu) >> 4) | (static_cast<uint64_t>(sbo >> 4) << 32) |
+         (static_cast<uint64_t>(2) << 62);
+}
+
+// d (64 x 32, f32) += a (64 x 16 bf16, registers) * b (16 x 32 bf16, shared memory, N-major).
+__device__ __forceinline__ void wgmma_m64n32k16(float (&d)[16], const uint32_t (&a)[4],
+                                                 uint64_t b_desc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15},"
+      " {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b_desc), "r"(1));
 }
 
 // d (64 x 64, f32) += a (64 x 16 bf16, registers) * b (16 x 64 bf16, shared memory, N-major).

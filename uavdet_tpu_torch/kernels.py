@@ -100,10 +100,12 @@ def library() -> ctypes.CDLL:
 class CudaKernel:
     """One C entry point of the library, with its launch count."""
 
-    def __init__(self, symbol: str, argtypes):
+    def __init__(self, symbol: str, argtypes, counts_into=None):
         self.symbol = symbol
         self.argtypes = argtypes
         self.launches = 0
+        # another path of the same kernel counts its launches there
+        self.counts_into = counts_into or self
 
     @functools.cached_property
     def _fn(self):
@@ -117,7 +119,7 @@ class CudaKernel:
         if err != 0:
             msg = library().uavdet_error_string(err).decode()
             raise RuntimeError(f"{self.symbol}: CUDA error {err} ({msg})")
-        self.launches += 1
+        self.counts_into.launches += 1
 
 
 # (x, x_is_u8, k1, out, partial, B, H, W, stream)
@@ -126,6 +128,10 @@ STEM_L1 = CudaKernel("uavdet_stem_l1", [_P, _I, _P, _P, _P, _I, _I, _I, _P])
 STEM_L2 = CudaKernel("uavdet_stem_l2", [_P, _P, _P, _I, _I, _I, _P])
 # (boxes, alive, B, N, iou_threshold, stream)
 NMS = CudaKernel("uavdet_nms_alive", [_P, _P, _I, _I, ctypes.c_float, _P])
+# above ops.nms.MAX_BOXES boxes: (boxes, alive, mask, B, N, iou_threshold,
+# stream), counted as NMS
+NMS_LARGE = CudaKernel("uavdet_nms_alive_large",
+                       [_P, _P, _P, _I, _I, ctypes.c_float, _P], NMS)
 # (x, k, mul, add, out, partial or NULL, B, H, W, C, Co, fold_out, stream)
 DYCONV = CudaKernel("uavdet_dyconv", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                       _I, _I, _P])

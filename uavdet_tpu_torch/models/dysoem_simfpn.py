@@ -82,15 +82,17 @@ class Experts(nn.Module):
 class DynamicSOEM(nn.Module):
     """Small-Object Enhancement Module, NHWC in and out.
 
-    A bf16 module with 3x3 experts goes through ``ops.dyconv.dyconv``
-    (kernel D on a CUDA tensor, its plain version on the CPU): bf16
-    operands, f32 sums, inference BN folded into the kernel's affine. The
-    kernel is bf16-only and has no backward, as in the JAX package. Off the
-    CPU, inference has no other way: a module in eval mode that is not bf16
-    with 3x3 experts raises there instead of giving way to a library conv.
-    On the CPU, and in training, any other dtype (or kernel size) runs the
-    same mixed-kernel conv in that dtype through PyTorch's grouped conv
-    (groups = batch), without rounding.
+    In eval mode a bf16 module with 3x3 experts goes through
+    ``ops.dyconv.dyconv`` (kernel D on a CUDA tensor, its plain version on
+    the CPU): bf16 operands, f32 sums, inference BN folded into the
+    kernel's affine. The kernel is bf16-only and has no backward, as in the
+    JAX package, so it claims nothing else: in training, whatever the dtype
+    and device, and in eval mode for any other dtype, the same mixed-kernel
+    conv runs in the module's dtype through PyTorch's grouped conv
+    (groups = batch), without rounding, with BatchNorm in its own mode. A
+    float32 conv on the card follows ``torch.backends.cudnn.allow_tf32``.
+    Off the CPU a bf16 module in eval mode with other experts than 3x3
+    raises instead of giving way to a library conv.
 
     ``pooled``: the attention's input, the channel means of the
     space-to-depth'd map (B, 4C), when the producer of ``x`` already has
@@ -133,10 +135,12 @@ class DynamicSOEM(nn.Module):
             acc = torch.promote_types(f.dtype, torch.float32)
             pooled = f.mean(dim=(1, 2), dtype=acc).to(f.dtype)
         attn = self.attention_weights(pooled, attn_temp)
-        if f.dtype == torch.bfloat16 and ks == 3:
-            if self.training:
-                raise RuntimeError("the dyconv kernel is inference-only: "
-                                   "call eval(), or train in float32")
+        if (f.dtype == torch.bfloat16 and not self.training and ks != 3
+                and f.device.type != "cpu"):
+            raise RuntimeError(
+                f"DynamicSOEM serves bfloat16 on {f.device} through the "
+                f"dyconv kernel only, which takes 3x3 experts; got {ks}x{ks}")
+        if f.dtype == torch.bfloat16 and ks == 3 and not self.training:
             bn = self.bn
             mul = bn.weight.float() * torch.rsqrt(bn.running_var.float()
                                                   + bn.eps)
@@ -144,11 +148,6 @@ class DynamicSOEM(nn.Module):
                 + mixed_bias(self.experts.bias.float(), attn, oc) * mul
             k = mixed_kernel(self.experts.kernel.float(), attn, oc)
             return conv(f, k.to(torch.bfloat16), mul, add, emit_gap=emit_gap)
-        if f.device.type != "cpu" and not self.training:
-            raise RuntimeError(
-                f"DynamicSOEM serves on {f.device} through the dyconv kernel "
-                f"only, which takes bfloat16 and 3x3 experts; got {f.dtype} "
-                f"and {ks}x{ks}: build the model with dtype=torch.bfloat16")
         attn = attn.to(f.dtype)
         k = mixed_kernel(self.experts.kernel, attn, oc)   # (B, ks*ks, C, Co)
         y = F.conv2d(f.permute(0, 3, 1, 2).reshape(1, b * c, h, w),

@@ -8,7 +8,10 @@ padding (score -inf) never survives.
 
 ``nms_alive`` dispatches on the device of its input: a CPU tensor takes the
 plain PyTorch version ``nms_alive_plain``, a CUDA tensor launches the kernel,
-anything else raises.
+anything else raises. Up to ``MAX_BOXES`` boxes per image the kernel keeps
+its mask in a cluster's shared memory; above, it keeps the mask rows in a
+scratch tensor in device memory (N * ceil(N / 64) * 8 bytes per image, 2 MB
+at N = 4096) and takes two launches, counted as one.
 """
 
 import numpy as np
@@ -18,10 +21,13 @@ from .. import kernels
 from .boxes import box_iou_pairwise
 
 _BLOCK = 32
-MAX_BOXES = 1024   # per image, what the kernel's shared memory holds
+MAX_BOXES = 1024   # per image, what a cluster's shared memory holds
+# per image, what the walk's shared memory of removed words holds (48 KB)
+MAX_BOXES_LARGE = 64 * 6144
 
 # (kind, B, N) at the edges of the kernel's layout: 64 ranks per mask word, 8
-# blocks per image that take the mask's rows in turn, at most MAX_BOXES boxes.
+# blocks per image that take the mask's rows in turn, at most MAX_BOXES boxes
+# in shared memory, and the path with the mask in device memory above that.
 # ``nms_edge_case`` makes the boxes. The CPU tests hold the plain version
 # against the JAX package at these cases, the smoke test the kernel against
 # the plain version on the card, bitwise.
@@ -30,7 +36,10 @@ NMS_EDGE_CASES = (
     ("crowded", 1, 63),       # a bit short of one word
     ("crowded", 2, 65),       # a bit past one word; N not a multiple of 8
     ("crowded", 16, 512),     # the detector's shape
-    ("crowded", 1, 1024),     # the most the kernel takes
+    ("crowded", 1, 1024),     # the most the shared-memory mask takes
+    ("crowded", 2, 1025),     # one box past it: the mask in device memory
+    ("crowded", 1, 2048),     # 32 words: every lane of the walk holds one
+    ("crowded", 1, 4096),     # 64 words: two per lane
     ("crowded", 3, 100),      # N a multiple of neither 64 nor 8
     ("identical", 2, 130),    # every box the same: one survivor
     ("disjoint", 2, 200),     # no two boxes overlap: all survive
@@ -111,14 +120,23 @@ def _nms_alive_cuda(boxes_sorted: torch.Tensor, iou_threshold: float,
     if four != 4 or boxes_sorted.dtype != torch.float32:
         raise ValueError(f"boxes must be (B, N, 4) float32, got "
                          f"{tuple(boxes_sorted.shape)} {boxes_sorted.dtype}")
-    if not (1 <= n <= MAX_BOXES and b >= 1):
-        raise ValueError(f"the NMS kernel takes 1 to {MAX_BOXES} boxes of at "
-                         f"least one image, got {n} boxes of {b} images")
+    if not (1 <= n <= MAX_BOXES_LARGE and b >= 1):
+        raise ValueError(f"the NMS kernel takes 1 to {MAX_BOXES_LARGE} boxes "
+                         f"of at least one image, got {n} boxes of {b} "
+                         "images")
+    if stamps is not None and n > MAX_BOXES:
+        raise ValueError(f"the stamped kernel takes at most {MAX_BOXES} boxes")
     boxes_sorted = boxes_sorted.contiguous()
     if boxes_sorted.data_ptr() % 16:
         raise ValueError("boxes must be 16-byte aligned (read as float4)")
     alive = torch.empty((b, n), dtype=torch.bool, device=boxes_sorted.device)
-    if stamps is None:
+    if n > MAX_BOXES:
+        mask = torch.empty((b, n, (n + 63) // 64), dtype=torch.int64,
+                           device=boxes_sorted.device)
+        kernels.NMS_LARGE(boxes_sorted.data_ptr(), alive.data_ptr(),
+                          mask.data_ptr(), b, n, float(iou_threshold),
+                          kernels.stream_of(boxes_sorted))
+    elif stamps is None:
         kernels.NMS(boxes_sorted.data_ptr(), alive.data_ptr(), b, n,
                     float(iou_threshold), kernels.stream_of(boxes_sorted))
     else:

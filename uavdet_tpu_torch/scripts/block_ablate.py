@@ -7,15 +7,19 @@ the kernel, each its own instantiation, each still storing every output
 tile (of what the stage produced last), timed with CUDA events. The stages
 are the ones ``csrc/post_stem_block.cu`` has on this card:
 
-  load   stage x's 19 x 19 window, w1, k2 and the biases in shared memory
+  load   x's 19 x 19 window by TMA into each block of a cluster of two, the
+         block's resident weights (once), the tile's store
   dot1   + the 1x1 64->32 conv + leaky + mask: z
-  dot2   + the 3x3 32->64 conv + leaky + residual + mask: y
-  full   + k3 streamed tap by tap and the 3x3 stride-2 64->128 conv + leaky
+  dot2   + the block's half of the 3x3 32->64 conv + leaky + residual + mask
+         (y), written into both blocks, and the cluster's barriers
+  full   + the block's half of the 3x3 stride-2 64->128 conv + leaky
 
 The TPU harness's mask, tap-staging, fold and roll stages and its candidate
 fixes time layout steps of Mosaic that this kernel does not have. The first
 line printed is the card's name and power limit; a "program" in the
-per-program time is one 8 x 8 output tile.
+per-program time is one 8 x 8 output tile (of 128 channels, one cluster's
+turn). The weights are packed once (``pack_block_weights``), so each timed
+call is the kernel's launch alone.
 
 Usage: python3 -m uavdet_tpu_torch.scripts.block_ablate [--batch 16]
        [--input 640] [--iters 20] [--only dot2,full]
@@ -40,7 +44,8 @@ def main(argv=None) -> int:
 
     import torch
 
-    from ..ops.block import BLOCK_STAGES, post_stem_block_stage
+    from ..ops.block import (BLOCK_STAGES, pack_block_weights,
+                             post_stem_block_stage)
     from ..utils.timing import card_line, cuda_ms
 
     if not torch.cuda.is_available():
@@ -60,6 +65,7 @@ def main(argv=None) -> int:
     w1 = operand((32, 65), 0.1)
     k2 = operand((64, 289), 0.1)
     k3 = operand((128, 577), 0.1)
+    w1, k2, k3 = pack_block_weights(w1, k2, k3)
     n_prog = b * -(-((h2 + 1) // 2) // 8) * -(-((w + 1) // 2) // 8)
 
     stages = list(BLOCK_STAGES)

@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
-"""What holds kernel A (``csrc/stem_l1.cu``) and the NMS kernel
-(``csrc/nms.cu``), measured on variants of them, on one NVIDIA GPU.
+"""What holds kernel A (``csrc/stem_l1.cu``), the NMS kernel
+(``csrc/nms.cu``) and kernel G (``csrc/post_stem_block.cu``), measured on
+variants of them, on one NVIDIA GPU.
 
 A variant is a copy of ``csrc/`` in a temporary directory with a few pieces
-of text replaced (``A_VARIANTS``, ``C_VARIANTS``: file, old text, new text),
+of text replaced (``A_VARIANTS``, ``C_VARIANTS``, ``G_VARIANTS``: file, old
+text, new text),
 built by nvcc into a library of its own and launched through its C entry
 point; the shipped library is not touched. A CPU test holds every ``old``
 text against the sources, so a variant cannot silently stop applying.
@@ -32,7 +34,17 @@ the two phases by the card's global timer. With ``--parent-csrc DIR``
 (the ``csrc/`` of a checkout of the one-block-per-image kernel that
 preceded this one) that kernel's two phases are read the same way.
 
-Usage: python3 -m uavdet_tpu_torch.scripts.kernel_probe [--only a,c]
+Kernel G at (batch, input / 2, input / 2, 64), every stage of its ladder
+by one launch between two events, ``full`` also back to back, held against
+the plain version:
+
+  base        the kernel as shipped
+  sets2/4     2 or 4 sets of A fragments in its convs instead of 3
+  noremote    no stores of the sums into the other block (wrong values)
+  noexchange  neither those stores nor the waits for them
+  nostore     no TMA store of the output tiles (nothing written)
+
+Usage: python3 -m uavdet_tpu_torch.scripts.kernel_probe [--only a,c,g]
        [--batch 16] [--input 640] [--iters 20] [--parent-csrc DIR]
 """
 
@@ -45,6 +57,7 @@ import tempfile
 from pathlib import Path
 
 L1, TILE, NMS = "stem_l1.cu", "stem_l1_tile.cuh", "nms.cu"
+PSB = "post_stem_block.cu"
 _BOUNDS = "__launch_bounds__(THREADS, 6)"
 _SILU = ("pack_bf16x2(silu_fast(acc[j][0]), silu_fast(acc[j][1]))",
          "pack_bf16x2(silu_fast(acc[j][2]), silu_fast(acc[j][3]))")
@@ -113,6 +126,24 @@ PARENT_NMS_STAMPS = [
      "static_cast<long long*>(stamps));"),
 ]
 
+# kernel G: fragment sets in flight, and what the exchange of the output
+# conv's sums between the two blocks and the tiles' stores cost (those
+# variants give wrong outputs: timing only; a block still leaves only when
+# the other is done with its shared memory)
+G_VARIANTS = {
+    "base": [],
+    "sets2": [(PSB, "constexpr int SETS = 3;", "constexpr int SETS = 2;")],
+    "sets4": [(PSB, "constexpr int SETS = 3;", "constexpr int SETS = 4;")],
+    "noremote": [(PSB, "st_cluster_v4(peer_part",
+                  "if (false) st_cluster_v4(peer_part")],
+    "noexchange": [(PSB, "st_cluster_v4(peer_part",
+                    "if (false) st_cluster_v4(peer_part"),
+                   (PSB, "mbar_wait_cluster(sums_",
+                    "if (false) mbar_wait_cluster(sums_")],
+    "nostore": [(PSB, "tma_store_4d(&out_map, s_base + OFF_OUT, rank * C0, "
+                 "ox0, oy0, b);", "")],
+}
+
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
@@ -145,8 +176,8 @@ def build_variants(variants: dict, source: str, csrc: Path, tmp: Path):
         if proc.returncode != 0:
             print(f"{name}: nvcc failed\n{log[-2000:]}", flush=True)
             continue
-        regs = sorted({w for line in log.splitlines() if "registers" in line
-                       for w in [line.split("Used ")[1].split(",")[0]]})
+        regs = sorted({line.split("Used ")[1].split(",")[0]
+                       for line in log.splitlines() if "Used " in line})
         print(f"built {name}: {', '.join(regs)}", flush=True)
         libs[name] = ctypes.CDLL(str(tmp / name / "lib.so"))
     return libs
@@ -285,10 +316,51 @@ def probe_parent_nms(args, tmp: Path) -> None:
               flush=True)
 
 
+def probe_g(args, tmp: Path) -> None:
+    """Kernel G's variants at the block's shape in DyYOLO, each stage of
+    the ladder, on weights packed once."""
+    import torch
+
+    from .. import kernels
+    from ..ops.block import (BLOCK_STAGES, pack_block_weights,
+                             post_stem_block_plain)
+    from ..utils.timing import back_to_back_ms, cuda_ms
+    libs = build_variants(G_VARIANTS, PSB, kernels.CSRC, tmp)
+    rng = torch.Generator(device="cuda").manual_seed(0)
+    b, h = args.batch, args.input // 2
+    x = torch.randn((b, h, h, 64), generator=rng, device="cuda").to(
+        torch.bfloat16)
+    ws = [0.1 * torch.randn(s, generator=rng, device="cuda")
+          for s in ((32, 65), (64, 289), (128, 577))]
+    want = post_stem_block_plain(x, *ws)
+    (i1, c1, _), (i2, c2, _), (i3, c3, _) = pack_block_weights(*ws)
+    out = torch.empty_like(want)
+    stream = torch.cuda.current_stream().cuda_stream
+    for name, lib in libs.items():
+        lib.uavdet_post_stem_block.argtypes = [_P] * 8 + [_I] * 4 + [_P]
+        times = []
+        for stage in range(len(BLOCK_STAGES)):
+            def run():
+                checked(lib.uavdet_post_stem_block, x.data_ptr(),
+                        i1.data_ptr(), i2.data_ptr(), i3.data_ptr(),
+                        c1.data_ptr(), c2.data_ptr(), c3.data_ptr(),
+                        out.data_ptr(), b, h, h, stage, stream)
+            times.append(cuda_ms(run, args.iters, 3))
+        burst = back_to_back_ms(run, args.iters)
+        torch.cuda.synchronize()
+        close = torch.allclose(out.float(), want.float(), rtol=1.6e-2,
+                               atol=1e-2)
+        print(f"G {name:<10s} " + " / ".join(
+            f"{s} {t:.4f}" for s, t in zip(BLOCK_STAGES, times))
+            + f" ms; full back to back {burst:.4f}; within the tolerance of "
+            f"the plain version: {close}", flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", type=str, default="a,c",
-                    help="comma list of a (kernel A), c (the NMS kernel)")
+                    help="comma list of a (kernel A), c (the NMS kernel), "
+                         "g (kernel G)")
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--input", type=int, default=640)
     ap.add_argument("--iters", type=int, default=20)
@@ -309,6 +381,8 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         if "a" in only:
             probe_a(args, Path(tmp) / "a")
+        if "g" in only:
+            probe_g(args, Path(tmp) / "g")
         if "c" in only:
             probe_c(args, Path(tmp) / "c")
             if args.parent_csrc:
