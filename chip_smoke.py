@@ -80,6 +80,22 @@ nor PyYAML. The phases, in order:
   7e. DySOEM_SimFPN in float32 (batch 2, 256 px, eval mode): its SOEMs
      take the grouped conv (no kernel claims f32), against the same
      model's detections on the CPU;
+  7f. train path 1: full-width DyYOLO at cfg6's shape (640 px, batch 8,
+     grad_batches 2, bf16 autocast over float32 parameters, SGD with
+     momentum 0.78 and lr 1e-4 from conf/model/dy-yolo.yaml), seeded
+     weights, 8 microbatches of painted-box frames: 4 optimizer updates;
+     every loss finite, the parameters moved, every conv and DyConv output
+     bf16 (forward hooks), no kernel launched by a train step;
+  7g. the trainer path: ``Trainer.fit`` at the same shape (1 epoch, 4 train
+     and 2 validation batches, ``eval_ap``), checkpoints in a temporary
+     directory, then a second trainer's ``fit(resume=True)``; the
+     validation's detector launches kernels A, B and C once per batch and
+     its detections on one batch agree with the plain path's;
+  7h. train path 2: full-width DySOEM_SimFPN at 1280 px, batch 4, bf16
+     autocast, 2 updates; its eval-mode validation loss launches kernel D
+     three times per batch and agrees with the plain dyconv's;
+  7i. float32 train steps on the card against the CPU: the tiny DyYOLO of
+     tests/test_trainer.py at 64 px, TF32 off, 4 microbatches each;
   8. times, with CUDA events, medians after warm-up: the four detectors per
      batch, and each kernel at its main-path shapes beside its plain
      version and beside one bf16 ``F.conv2d(groups=B)`` call that computes
@@ -95,8 +111,11 @@ nor PyYAML. The phases, in order:
      the NMS kernel also at (1, 512) and (16, 4096), its two phases by the
      card's global timer, and an empty launch of its grid; kernel G with
      the weights packed once, its time alone by the profiler, and the eager
-     tail's two layers it replaces;
-  9. a ``torch.profiler`` window of each detector: device time by kernel.
+     tail's two layers it replaces; a cfg6 train microbatch (and with
+     PyTorch's own BatchNorm update beside the port's), images per second,
+     ``Trainer.validate`` per batch and the peak device memory of training;
+  9. a ``torch.profiler`` window of each detector and of two cfg6 train
+     microbatches: device time by kernel.
 
 No detector path may launch kernel E, F or G: their paths are the op and
 the two command-line entries, as in the JAX package.
@@ -126,6 +145,23 @@ SEED = 0
 NMS_N = 512
 NMS_LARGE_N = 4096                   # the NMS kernel's path with the mask in device memory
 F32_BATCH, F32_SIZE = 2, 256         # the float32 DySOEM_SimFPN, card against CPU
+# training at cfg6's shape (bench.py:236-276): 640 px, batch 8, grad_batches 2
+TRAIN_BATCH, TRAIN_GRAD_BATCHES, TRAIN_MICRO = 8, 2, 8
+TRAIN_BOXES = 8                      # the data pipeline's padded box count
+TRAIN_VAL_BATCHES = 2                # Trainer.fit's validation batches
+SOEM_TRAIN_BATCH, SOEM_TRAIN_MICRO = 4, 2   # DySOEM_SimFPN at 1280 px
+TRAIN_ITERS, TRAIN_WARMUP = 10, 4    # timed microbatches (5 updates)
+# the tiny DyYOLO of tests/test_trainer.py:14-39 (tests/test_entry_points.py
+# TINY) for the float32 steps, card against CPU
+TINY = (("DyConv", 8, 3, 1), (16, 3, 2), ("B", 1), (32, 3, 2), ("B", 8),
+        (64, 3, 2), ("B", 8), (128, 3, 2), ("B", 1), (64, 1, 1),
+        (128, 3, 1), ("S",), (32, 1, 1), ("U",), (32, 1, 1), (64, 3, 1),
+        ("S",), (16, 1, 1), ("U",), (16, 1, 1), (32, 3, 1), ("S",))
+PARITY_SIZE, PARITY_BATCH, PARITY_MICRO = 64, 2, 4
+# float32 losses on the card against the CPU: the CPU tests hold the port's
+# first four steps against JAX's to 1e-5 (tests/test_torch_train_step.py);
+# cuDNN's f32 convolutions and reductions sum in other orders again
+PARITY_RTOL = 1e-4
 # published peaks of one H100 SXM: bytes/s of device memory, dense bf16 on the
 # tensor cores, f32 outside them
 HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
@@ -172,6 +208,12 @@ EXPECTED_LAUNCHES = {
     "DyYOLO dual": {"stem_l1": 1, "stem_l2": 1, "nms": 1},
     "DyYOLO pre_nms_topk 4096": {"stem_l1": 1, "stem_l2": 1, "nms": 1},
     "DySOEM_SimFPN float32": {"nms": 1},
+    # per microbatch: training runs the plain modules
+    "DyYOLO train step": {},
+    "DySOEM_SimFPN train step": {},
+    # per validation batch of Trainer.fit / of the eval step
+    "Trainer.fit DyYOLO": {"stem_l1": 1, "stem_l2": 1, "nms": 1},
+    "DySOEM_SimFPN eval step": {"dyconv": 3},
     "stem_fused op": {"stem_fused": 1},
     # one run of a ladder's entry point: every stage, warm-up included
     "l2_ablate": {"stem_l2_stage": 5 * (LADDER_ITERS + 3)},
@@ -420,6 +462,69 @@ def library_dyconv(x, k, mul, add):
     a = add.to(torch.bfloat16)[:, :, None, None]
     return lambda: F.silu(F.conv2d(xq, wq, padding=1, groups=b).reshape(
         b, co, h, w) * m + a)
+
+
+def painted_batch(gen, device, batch: int, size: int,
+                  n_boxes: int = TRAIN_BOXES):
+    """A training batch on the card: dim noise frames (B, S, S, 3) f32 with
+    bright rectangles where the valid boxes are, boxes (B, N, 4) normalized
+    xyxy, and a mask with 1 to N valid boxes per image."""
+    import torch
+    from uavdet_tpu_torch.utils.datatypes import BatchData
+    wh = size * (0.04 + 0.3 * torch.rand((batch, n_boxes, 2), generator=gen,
+                                         device=device))
+    lo = torch.rand((batch, n_boxes, 2), generator=gen, device=device) \
+        * (size - wh)
+    boxes = torch.cat([lo, lo + wh], dim=-1) / size
+    n_valid = torch.randint(1, n_boxes + 1, (batch, 1), generator=gen,
+                            device=device)
+    mask = torch.arange(n_boxes, device=device)[None] < n_valid
+    image = 0.3 * torch.rand((batch, size, size, 3), generator=gen,
+                             device=device)
+    pix = (torch.arange(size, device=device) + 0.5) / size
+    for i in range(n_boxes):
+        b = boxes[:, i]
+        inside = ((pix[None, :, None] >= b[:, 1, None, None])
+                  & (pix[None, :, None] < b[:, 3, None, None])
+                  & (pix[None, None, :] >= b[:, 0, None, None])
+                  & (pix[None, None, :] < b[:, 2, None, None])
+                  & mask[:, i, None, None])
+        image = torch.where(inside[..., None], 0.8, image)
+    return BatchData(image=image, boxes=boxes, box_mask=mask)
+
+
+def as_dict(ns):
+    """A SimpleNamespace of hyper-parameters (nested) as plain dicts, for a
+    ``Config``."""
+    from types import SimpleNamespace
+    if isinstance(ns, SimpleNamespace):
+        return {k: as_dict(v) for k, v in vars(ns).items()}
+    return ns
+
+
+class BatchList:
+    """A fixed list of batches with ``len()``: the trainer's data."""
+
+    def __init__(self, batches):
+        self.batches = batches
+
+    def __len__(self):
+        return len(self.batches)
+
+    def __iter__(self):
+        return iter(self.batches)
+
+
+def conv_dtype_hooks(model):
+    """Record the output dtype of every Conv2d and DyConvModule called."""
+    import torch
+    from uavdet_tpu_torch.models.layers import DyConvModule
+    seen, handles = [], []
+    for m in model.modules():
+        if isinstance(m, (torch.nn.Conv2d, DyConvModule)):
+            handles.append(m.register_forward_hook(
+                lambda mod, args, out: seen.append(out.dtype)))
+    return seen, handles
 
 
 def main() -> int:
@@ -1027,6 +1132,244 @@ def main() -> int:
     smoke.phase("7d main path 5: DyYOLO, pre_nms_topk 4096", main_path_topk)
     smoke.phase("7e main path 6: DySOEM_SimFPN float32", main_path_soem_f32)
 
+    from types import SimpleNamespace
+
+    from uavdet_tpu_torch.models.layers import BatchNorm2d
+    from uavdet_tpu_torch.ops.losses import yolo_loss
+    from uavdet_tpu_torch.ops.targets import encode_yolo_targets
+    from uavdet_tpu_torch.training import (MetricsWriter, Trainer,
+                                           build_optimizer, init_state,
+                                           make_eval_step, make_train_step)
+    from uavdet_tpu_torch.training.steps import autocast
+    from uavdet_tpu_torch.utils.config import Config
+
+    bf16 = torch.bfloat16
+
+    def train_state(model, hp):
+        optimizer, scheduler = build_optimizer(model.parameters(), hp)
+        return init_state(model, optimizer, scheduler)
+
+    def moved(params, before) -> float:
+        return max(float((p.detach() - q).abs().max())
+                   for p, q in zip(params, before))
+
+    @torch.no_grad()
+    def snapshot(model):
+        return [p.detach().clone() for p in model.parameters()]
+
+    def train_path_dyyolo():
+        model_t = seeded_model("DyYOLO", DYYOLO, SEED, dtype=torch.float32)
+        state = train_state(model_t, DYYOLO)
+        step = make_train_step(model_t, DYYOLO, SIZE, compute_dtype=bf16,
+                               grad_batches=TRAIN_GRAD_BATCHES)
+        batches = [painted_batch(gen, dev, TRAIN_BATCH, SIZE)
+                   for _ in range(TRAIN_MICRO)]
+        before = snapshot(model_t)
+        seen, handles = conv_dtype_hooks(model_t)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        metrics = [step(state, b) for b in batches]
+        torch.cuda.synchronize()
+        count_launches(smoke, kernels, "DyYOLO train step", TRAIN_MICRO)
+        for h in handles:
+            h.remove()
+        losses = [float(m["loss"]) for m in metrics]
+        smoke.check("DyYOLO train losses finite",
+                    all(np.isfinite(losses)), f"{losses}")
+        smoke.check("DyYOLO train parameters moved",
+                    moved(model_t.parameters(), before) > 0,
+                    f"max |change| {moved(model_t.parameters(), before):.3g}")
+        smoke.check("DyYOLO train counters",
+                    (state.step, state.mini_step, state.scheduler.last_epoch)
+                    == (TRAIN_MICRO // TRAIN_GRAD_BATCHES, 0,
+                        TRAIN_MICRO // TRAIN_GRAD_BATCHES),
+                    f"step {state.step}, scheduler {state.scheduler.last_epoch}"
+                    f", mini_step {state.mini_step} after {TRAIN_MICRO} "
+                    f"microbatches of grad_batches {TRAIN_GRAD_BATCHES}")
+        smoke.check("DyYOLO train convs run in bf16",
+                    len(seen) > 0 and set(seen) == {bf16},
+                    f"{len(seen)} conv/DyConv outputs, dtypes {set(seen)}")
+        print(f"peak device memory of 8 train microbatches "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB {tag}")
+        inputs["train"] = (model_t, state, step, batches)
+
+    smoke.phase("7f train path 1: DyYOLO at cfg6", train_path_dyyolo)
+
+    import shutil
+    import tempfile
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_train_")
+
+    def trainer_config():
+        return Config({
+            "dataset": {"batch_size": TRAIN_BATCH, "image_size": [SIZE, SIZE]},
+            "train": {"seed": SEED, "trainer": {
+                "epochs": 1, "grad_batches": TRAIN_GRAD_BATCHES,
+                "train_batches": 4, "val_batches": TRAIN_VAL_BATCHES,
+                "val_check_interval": 1.0, "precision": "bf16",
+                "grad_clip_val": None, "eval_ap": True, "profiler": None},
+                "checkpoint": {"dir": f"{workdir}/ck", "monitor": "val_loss",
+                               "mode": "min"}},
+            "model": {"name": "DyYOLO", "hparams": as_dict(DYYOLO)}})
+
+    def trainer_path():
+        import os
+        train_b = BatchList([painted_batch(gen, dev, TRAIN_BATCH, SIZE)
+                             for _ in range(4)])
+        val_b = BatchList([painted_batch(gen, dev, TRAIN_BATCH, SIZE)
+                           for _ in range(TRAIN_VAL_BATCHES)])
+        trainer = Trainer(trainer_config(), train_b, val_b,
+                          metrics=MetricsWriter(f"{workdir}/dv"))
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        final = trainer.fit()
+        torch.cuda.synchronize()
+        count_launches(smoke, kernels, "Trainer.fit DyYOLO",
+                       TRAIN_VAL_BATCHES)
+        smoke.check("Trainer.fit val_loss and val_AP",
+                    np.isfinite(final["val_loss"]) and final["val_AP"] >= 0,
+                    f"{final}")
+        names = sorted(os.listdir(f"{workdir}/ck"))
+        smoke.check("Trainer.fit files",
+                    os.path.exists(f"{workdir}/dv/metrics.json")
+                    and len(names) == 3 and names[0].startswith("best-00-")
+                    and names[1:] == ["last", "meta.json"], f"{names}")
+        again = Trainer(trainer_config(), train_b, val_b,
+                        metrics=MetricsWriter(f"{workdir}/dv2"))
+        kernels.reset_launch_counts()
+        final2 = again.fit(resume=True)
+        torch.cuda.synchronize()
+        count_launches(smoke, kernels, "Trainer.fit DyYOLO",
+                       TRAIN_VAL_BATCHES)
+        smoke.check("Trainer.fit(resume=True) restores the step",
+                    again.state.step == 2 * trainer.state.step
+                    and np.isfinite(final2["val_loss"]),
+                    f"step {again.state.step} after resuming from "
+                    f"{trainer.state.step}")
+        inputs["trainer"] = (trainer, val_b)
+        # the trainer's detector against the same model with the plain
+        # versions of kernels A, B and C, under the same autocast
+        m = trainer.model.eval()
+        x = val_b.batches[0].image
+        with torch.inference_mode(), autocast(dev, bf16):
+            d = trainer._detector(x)
+            xp = preprocess(x, SIZE, bf16)
+            fast = detector_stem_fast_path(m)
+            a_p = fused_stem_forward(xp, m.layers[0], m.layers[1],
+                                     m.attn_temperature, l1=stem_l1_plain,
+                                     l2=stem_l2_plain)
+            outs_p = fast.tail(a_p)
+            scales = [SIZE // o.obj.shape[2] for o in outs_p]
+            plain = select_detections(
+                *decode_topk_global(outs_p, DYYOLO.anchors, scales, 512),
+                0.001, 0.5, 300, alive_fn=nms_alive_plain)
+        compare_detections(smoke, d, plain,
+                           name="Trainer detections vs plain path")
+
+    smoke.phase("7g trainer path: Trainer.fit at cfg6", trainer_path)
+
+    def val_loss(outs, batch, hp, size):
+        lb = hp.loss_balancing
+        scales = [size // o.obj.shape[2] for o in outs]
+        grids = encode_yolo_targets(batch.boxes, batch.box_mask, hp.anchors,
+                                    scales, size)
+        return yolo_loss(outs, grids, hp.anchors, scales,
+                         obj_scales_w=lb.obj_scales_w, bbox_w=lb.bbox_w,
+                         objectness_w=lb.objectness_w, no_obj_w=lb.no_obj_w,
+                         bbox_loss_fn=hp.bbox_loss_fn)
+
+    def train_path_soem():
+        soem_t = seeded_model("DySOEM_SimFPN", DYSOEM, SEED,
+                              dtype=torch.float32)
+        state = train_state(soem_t, DYSOEM)
+        step = make_train_step(soem_t, DYSOEM, SOEM_SIZE, compute_dtype=bf16)
+        batches = [painted_batch(gen, dev, SOEM_TRAIN_BATCH, SOEM_SIZE)
+                   for _ in range(SOEM_TRAIN_MICRO + 1)]
+        before = snapshot(soem_t)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        metrics = [step(state, b) for b in batches[:SOEM_TRAIN_MICRO]]
+        torch.cuda.synchronize()
+        count_launches(smoke, kernels, "DySOEM_SimFPN train step",
+                       SOEM_TRAIN_MICRO)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        losses = [float(m["loss"]) for m in metrics]
+        smoke.check("DySOEM_SimFPN train losses finite and parameters moved",
+                    all(np.isfinite(losses))
+                    and moved(soem_t.parameters(), before) > 0
+                    and state.step == SOEM_TRAIN_MICRO,
+                    f"{losses}, {state.step} updates")
+        print(f"DySOEM_SimFPN train @{SOEM_SIZE} bs={SOEM_TRAIN_BATCH}: peak "
+              f"device memory {peak:.2f} GiB {tag}")
+        smoke.stats["dyconv"]["train_peak_gib"] = peak
+        val = batches[-1]
+        eval_step = make_eval_step(soem_t, DYSOEM, SOEM_SIZE,
+                                   compute_dtype=bf16)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        got = eval_step(val)
+        torch.cuda.synchronize()
+        count_launches(smoke, kernels, "DySOEM_SimFPN eval step", 1)
+        with torch.no_grad(), autocast(dev, bf16):
+            outs_k = soem_t(val.image)
+            outs_p = soem_t(val.image, conv=dyconv_plain)
+        # the limit is in the logit (LOGIT_TOL, as for the detections)
+        err = max(float((getattr(a, f).float() - getattr(b, f).float())
+                        .abs().max())
+                  for a, b in zip(outs_k, outs_p) for f in ("obj", "bbox"))
+        smoke.check("DySOEM_SimFPN eval logits vs plain dyconv",
+                    err < LOGIT_TOL, f"max |logit diff| {err:.4g} (limit "
+                    f"{LOGIT_TOL})")
+        want = val_loss(outs_p, val, DYSOEM, SOEM_SIZE).total
+        # BCE moves by at most the logit's error, the box terms by a small
+        # multiple of it: a loss of ~10 moves far less than 5 %
+        rel = abs(float(got["loss"]) - float(want)) / float(want)
+        smoke.check("DySOEM_SimFPN val loss vs plain dyconv", rel < 0.05,
+                    f"{float(got['loss']):.6f} vs {float(want):.6f} "
+                    f"(relative {rel:.3g}; limit 0.05)")
+
+    smoke.phase("7h train path 2: DySOEM_SimFPN", train_path_soem)
+
+    tiny_hp = SimpleNamespace(
+        anchors=(((40, 30), (60, 46), (54, 36)),
+                 ((18, 14), (24, 18), (30, 12)),
+                 ((6, 5), (10, 6), (13, 8))),
+        lr=0.001, lr_scheduler=False, bbox_loss_fn="mse",
+        loss_balancing=SimpleNamespace(obj_scales_w=(0.5, 1.0, 2.0),
+                                       bbox_w=4.0, objectness_w=1.0,
+                                       no_obj_w=4.0),
+        optim=SimpleNamespace(name="SGD", momentum=0.78),
+        attn_temperature=30.0, layer_config=TINY)
+
+    def f32_train_parity():
+        # noise frames: flat painted regions would share one pre-activation
+        # per region, whose float-noise sign flips make training chaotic
+        # after the first update (tests/test_torch_train_trainer.py)
+        gen_cpu = torch.Generator().manual_seed(SEED)
+        batches = [painted_batch(gen_cpu, "cpu", PARITY_BATCH, PARITY_SIZE, 2)
+                   for _ in range(PARITY_MICRO)]
+        batches = [b._replace(image=torch.rand(b.image.shape,
+                                               generator=gen_cpu))
+                   for b in batches]
+        losses = {}
+        for side, where in (("card", dev), ("cpu", torch.device("cpu"))):
+            m = seeded_model("DyYOLO", tiny_hp, SEED, where,
+                             dtype=torch.float32)
+            state = train_state(m, tiny_hp)
+            step = make_train_step(m, tiny_hp, PARITY_SIZE, grad_batches=2)
+            losses[side] = np.array([
+                float(step(state, type(b)(*(t.to(where) for t in b)))["loss"])
+                for b in batches])
+        rel = np.abs(losses["card"] - losses["cpu"]) / losses["cpu"]
+        smoke.check("float32 train steps, card vs CPU",
+                    bool((rel < PARITY_RTOL).all()),
+                    f"card {losses['card'].tolist()} cpu "
+                    f"{losses['cpu'].tolist()} relative {rel.tolist()} "
+                    f"(rtol {PARITY_RTOL})")
+
+    smoke.phase("7i float32 train steps: card vs CPU", f32_train_parity)
+
     def time_pair(name, kern, plain, lib, iters=ITERS, warmup=WARMUP,
                   plain_iters=ITERS, plain_warmup=WARMUP):
         """Kernel and plain version in turns, so that neither side owns the
@@ -1174,7 +1517,54 @@ def main() -> int:
 
     smoke.phase("8 timing", timing)
 
-    @torch.inference_mode()
+    def timing_train():
+        """A cfg6 microbatch: the median over updates of 2 microbatches
+        each, halved; with PyTorch's own BatchNorm update in turns with the
+        port's (biased running variance); Trainer.validate per batch."""
+        model_t, state, step, batches = inputs["train"]
+        b = batches[0]
+
+        def update_pair():
+            step(state, b)
+            step(state, b)
+
+        def pair_ms():
+            return cuda_ms(update_pair, TRAIN_ITERS // 2,
+                           TRAIN_WARMUP // 2) / 2
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        port_bn, own_bn = BatchNorm2d.forward, torch.nn.BatchNorm2d.forward
+        ms = {"port": [], "torch": []}
+        for which in ("port", "torch", "torch", "port"):
+            BatchNorm2d.forward = port_bn if which == "port" else own_bn
+            try:
+                ms[which].append(pair_ms())
+            finally:
+                BatchNorm2d.forward = port_bn
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        micro = min(ms["port"])
+        trainer, val_b = inputs["trainer"]
+        eval_step = make_eval_step(trainer.model, DYYOLO, SIZE,
+                                   compute_dtype=bf16)
+        val_ms = cuda_ms(lambda: trainer.validate(trainer.state, eval_step),
+                         3, 1) / TRAIN_VAL_BATCHES
+        row = {"ms_per_microbatch": micro, "runs_ms": ms["port"],
+               "images_per_s": TRAIN_BATCH * 1000.0 / micro,
+               "torch_batchnorm_ms": ms["torch"],
+               "validate_ms_per_batch": val_ms, "peak_gib": peak,
+               "batch": TRAIN_BATCH, "size": SIZE,
+               "grad_batches": TRAIN_GRAD_BATCHES}
+        print(f"train DyYOLO @{SIZE} bs={TRAIN_BATCH} grad_batches "
+              f"{TRAIN_GRAD_BATCHES} bf16: {micro:.3f} ms/microbatch "
+              f"({ms['port']}), {row['images_per_s']:.1f} images/s; with "
+              f"PyTorch's own BatchNorm update {ms['torch']} ms; "
+              f"Trainer.validate {val_ms:.3f} ms/batch (eval_ap); peak "
+              f"device memory {peak:.2f} GiB {tag}")
+        print(json.dumps({"train": row}))
+
+    smoke.phase("8 timing: training", timing_train)
+
     def profile(name, fn, batches):
         """Device time by kernel over a few batches, and the device's idle
         share."""
@@ -1215,12 +1605,16 @@ def main() -> int:
     for args in (("DyYOLO", lambda: detect(frames), 3),
                  ("DySOEM_SimFPN", lambda: soem_detect(soem_frames), 2),
                  ("BaselineModel bs=1", lambda: base_detect(frames[:1]), 3),
-                 ("DyYOLO dual", lambda: dual_detect(*inputs["dual"]), 3)):
+                 ("DyYOLO dual", lambda: dual_detect(*inputs["dual"]), 3),
+                 ("DyYOLO train step cfg6, 2 microbatches = 1 update",
+                  lambda: [inputs["train"][2](inputs["train"][1], b)
+                           for b in inputs["train"][3][:2]], 2)):
         try:
             profile(*args)
         except Exception:   # a profiler that cannot trace the card fails nothing
             traceback.print_exc()
 
+    shutil.rmtree(workdir, ignore_errors=True)
     if smoke.failures:
         print(f"FAILED: {smoke.failures}", flush=True)
         return 1

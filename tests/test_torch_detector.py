@@ -158,6 +158,17 @@ def test_port_imports_no_jax():
             "import uavdet_tpu_torch.scripts.l2_ablate\n"
             "import uavdet_tpu_torch.scripts.block_ablate\n"
             "import uavdet_tpu_torch.scripts.kernel_probe\n"
+            "import uavdet_tpu_torch.training\n"
+            "import uavdet_tpu_torch.training.optim\n"
+            "import uavdet_tpu_torch.training.steps\n"
+            "import uavdet_tpu_torch.training.checkpoint\n"
+            "import uavdet_tpu_torch.training.dvclive_io\n"
+            "import uavdet_tpu_torch.training.trainer\n"
+            "import uavdet_tpu_torch.ops.boxes, uavdet_tpu_torch.ops.decode\n"
+            "import uavdet_tpu_torch.ops.targets, uavdet_tpu_torch.ops.losses\n"
+            "import uavdet_tpu_torch.ops.map\n"
+            "import uavdet_tpu_torch.utils.datatypes\n"
+            "import uavdet_tpu_torch.utils.config\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'uavdet_tpu', 'yaml')]\n"
             "assert not bad, bad\n"

@@ -289,6 +289,12 @@ def test_dysoem_constant_is_the_yaml():
     assert lists(DYSOEM.num_dy_conv) == hp["num_dy_conv"]
     assert lists(DYSOEM.dy_kernel_size) == hp["dy_kernel_size"]
 
+    for key in ("lr", "lr_scheduler", "bbox_loss_fn"):
+        assert getattr(DYSOEM, key) == hp[key], key
+    assert vars(DYSOEM.optim) == hp["optim"]
+    assert {k: lists(v) for k, v in vars(DYSOEM.loss_balancing).items()} \
+        == hp["loss_balancing"]
+
 
 def test_models_are_built_on_the_card_unless_told_otherwise():
     """``device`` defaults to "cuda" at both entry points; naming the CPU

@@ -155,6 +155,12 @@ def test_dyyolo_constant_is_the_yaml():
     assert lists(DYYOLO.head_scales) == hp["head_scales"]
     assert DYYOLO.attn_temperature == hp["attn_temperature"]
 
+    for key in ("lr", "lr_scheduler", "bbox_loss_fn"):
+        assert getattr(DYYOLO, key) == hp[key], key
+    assert vars(DYYOLO.optim) == hp["optim"]
+    assert {k: lists(v) for k, v in vars(DYYOLO.loss_balancing).items()} \
+        == hp["loss_balancing"]
+
 
 def test_build_model():
     model = build_model("DyYOLO", DYYOLO, dtype=torch.bfloat16, device="cpu")

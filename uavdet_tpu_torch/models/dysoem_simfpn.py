@@ -28,7 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.dyconv import dyconv, mixed_bias, mixed_kernel, parity_sums
-from .layers import ConvModule, YOLOHead
+from .layers import BatchNorm2d, ConvModule, YOLOHead
 
 
 class InputStemLayer(ConvModule):
@@ -117,7 +117,7 @@ class DynamicSOEM(nn.Module):
         self.attn_fc2 = nn.Linear(hidden, num_dy_conv)
         self.experts = Experts(dy_kernel_size, in_attn,
                                num_dy_conv * self.out_channels)
-        self.bn = nn.BatchNorm2d(self.out_channels)
+        self.bn = BatchNorm2d(self.out_channels)
 
     def attention_weights(self, pooled: torch.Tensor,
                           attn_temp: float) -> torch.Tensor:

@@ -2,9 +2,9 @@
 
 ``DYYOLO``, ``BASELINE`` and ``DYSOEM`` hold the hyper-parameters of
 ``conf/model/dy-yolo.yaml``, ``conf/model/baseline.yaml`` and
-``conf/model/dy-soem_fpn.yaml`` that inference needs, as Python constants,
-so that the port runs where PyYAML is not installed. A test holds each equal
-to its YAML file.
+``conf/model/dy-soem_fpn.yaml`` that inference and training need, as Python
+constants, so that the port runs where PyYAML is not installed. A test holds
+each equal to its YAML file.
 """
 
 from types import SimpleNamespace
@@ -20,6 +20,12 @@ DYYOLO = SimpleNamespace(
              ((91, 54), (120, 75), (157, 60)),
              ((29, 23), (48, 30), (67, 38))),
     head_scales=(32, 16, 8),
+    lr=1e-4,
+    lr_scheduler=False,
+    loss_balancing=SimpleNamespace(obj_scales_w=(0.5, 1.0, 2.0), bbox_w=4.0,
+                                   objectness_w=1.0, no_obj_w=4.0),
+    bbox_loss_fn="mse",
+    optim=SimpleNamespace(name="SGD", momentum=0.78),
     attn_temperature=30.0,
     layer_config=(
         ("DyConv", 32, 3, 1),
@@ -65,9 +71,15 @@ DYSOEM = SimpleNamespace(
              ((91, 54), (120, 75), (157, 60)),
              ((199, 73), (315, 92), (268, 182))),
     head_scales=(32, 16, 8),
+    lr=1e-4,
+    lr_scheduler=False,
     attention_temperature=30.0,
     num_dy_conv=(3, 3, 3),
     dy_kernel_size=(3, 3, 3),
+    loss_balancing=SimpleNamespace(obj_scales_w=(2.0, 1.0, 0.5), bbox_w=4.0,
+                                   objectness_w=1.0, no_obj_w=4.0),
+    bbox_loss_fn="mse",
+    optim=SimpleNamespace(name="SGD", momentum=0.7),
 )
 
 

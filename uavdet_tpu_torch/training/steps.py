@@ -1,0 +1,174 @@
+"""Train and eval steps: ``uavdet_tpu/training/steps.py`` in torch.
+
+One train step takes one microbatch: forward in train mode (under autocast
+to the compute dtype), YOLO targets encoded on the device, the loss in
+float32, backward of loss / k, and an optimizer update every k = grad_batches
+microbatches (``optim.update``). It runs the plain modules: the stem and
+dyconv kernels have no backward, as the Pallas kernels have none.
+
+Compute dtype: the parameters stay float32 and the forward runs under
+``torch.autocast`` to the compute dtype, where the JAX package builds its
+modules with ``dtype=bf16`` over float32 parameters. The models cast their
+input to the parameters' dtype, so without autocast a float32 model computes
+in float32 whatever the frames' dtype.
+
+The head strides come from the feature shapes (``input_size // S``), not
+from ``head_scales``.
+"""
+
+import contextlib
+
+import numpy as np
+import torch
+from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
+
+from ..ops.losses import yolo_loss
+from ..ops.targets import encode_yolo_targets
+from ..utils.datatypes import BatchData, TrainState
+from .optim import update
+
+# jax.checkpoint_policies names with a counterpart here
+REMAT_POLICIES = (True, "dots_saveable")
+
+
+def init_state(model: nn.Module, optimizer, scheduler) -> TrainState:
+    """The train state of a model whose parameters are initialized, with the
+    optimizer and scheduler of ``build_optimizer`` over them."""
+    return TrainState(model=model, optimizer=optimizer, scheduler=scheduler)
+
+
+def _loss_weights(hparams) -> dict:
+    lb = hparams.loss_balancing
+    get = (hparams.get if hasattr(hparams, "get")
+           else lambda k, d: getattr(hparams, k, d))
+    return dict(
+        obj_scales_w=tuple(float(w) for w in lb.obj_scales_w),
+        bbox_w=float(lb.bbox_w),
+        objectness_w=float(lb.objectness_w),
+        no_obj_w=float(lb.no_obj_w),
+        bbox_loss_fn=str(hparams.bbox_loss_fn),
+        iou_mode=str(get("iou_mode", "elementwise")))
+
+
+def autocast(device: torch.device, compute_dtype: torch.dtype):
+    """The forward's autocast context: to ``compute_dtype`` where it is
+    lower than float32, none otherwise."""
+    if compute_dtype in (torch.float32, torch.float64):
+        return contextlib.nullcontext()
+    return torch.autocast(device.type, dtype=compute_dtype)
+
+
+def _anchors(hparams, device) -> torch.Tensor:
+    """The anchors (H, A, 2) in pixels on the model's device, made once per
+    step function: a copy from pageable host memory at every step would make
+    the host wait there for the card to catch up."""
+    return torch.tensor(np.asarray(hparams.anchors, np.float32),
+                        device=device)
+
+
+def _loss(outs, batch: BatchData, anchors, input_size: int, weights: dict):
+    scales = tuple(input_size // o.obj.shape[2] for o in outs)
+    grids = encode_yolo_targets(batch.boxes, batch.box_mask, anchors, scales,
+                                input_size)
+    return yolo_loss(outs, grids, anchors, scales, **weights)
+
+
+def _saves_dots(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of ``jax.checkpoint_policies
+    .dots_saveable``: keep the outputs of convolutions and matmuls,
+    recompute the rest."""
+    aten = torch.ops.aten
+    dots = (aten.convolution.default, aten.mm.default, aten.bmm.default,
+            aten.addmm.default)
+    return (CheckpointPolicy.MUST_SAVE if op in dots
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _bn_buffers(model: nn.Module):
+    return [b for name, b in model.named_buffers()
+            if name.endswith(("running_mean", "running_var",
+                              "num_batches_tracked"))]
+
+
+def make_train_step(model: nn.Module, hparams, input_size: int,
+                    compute_dtype: torch.dtype = torch.float32,
+                    grad_batches: int = 1,
+                    grad_clip_val: float | None = None, remat=False,
+                    nan_guard: bool = False):
+    """-> ``train_step(state, batch) -> metrics``: one microbatch, the
+    update every ``grad_batches``-th; metrics ``loss``, ``bbox_loss`` and
+    ``obj_loss`` as device tensors.
+
+    ``remat``: recompute the forward in the backward
+    (``torch.utils.checkpoint``): ``True`` keeps nothing, ``'dots_saveable'``
+    keeps the outputs of convs and matmuls. The recomputation runs the
+    BatchNorms in train mode again; their buffers are put back to what the
+    forward left. Any other value but False raises.
+
+    ``nan_guard``: the step fetches the loss before its backward, and on a
+    non-finite loss puts the BatchNorm buffers back to what they were
+    before the step and returns the metrics without a backward or an
+    update: the accumulated gradients of earlier microbatches stay, as in
+    ``optax.MultiSteps`` when the JAX trainer discards the poisoned state.
+    """
+    if remat not in (False, *REMAT_POLICIES):
+        raise ValueError(f"remat={remat!r} has no counterpart in the torch "
+                         f"port; it takes False, True or 'dots_saveable'")
+    device = next(model.parameters()).device
+    anchors = _anchors(hparams, device)
+    weights = _loss_weights(hparams)
+
+    def forward(x):
+        with autocast(device, compute_dtype):
+            return model(x)
+
+    if remat:
+        plain_forward = forward
+        kw = ({} if remat is True else dict(
+            context_fn=lambda: create_selective_checkpoint_contexts(
+                _saves_dots)))
+
+        def forward(x):
+            return checkpoint(plain_forward, x, use_reentrant=False, **kw)
+
+    buffers = _bn_buffers(model)
+
+    def train_step(state: TrainState, batch: BatchData) -> dict:
+        model.train()
+        before = ([b.clone() for b in buffers] if nan_guard else None)
+        outs = forward(batch.image)
+        lb = _loss(outs, batch, anchors, input_size, weights)
+        metrics = {"loss": lb.total.detach(), "bbox_loss": lb.bbox.detach(),
+                   "obj_loss": lb.obj.detach()}
+        if nan_guard and not bool(torch.isfinite(lb.total)):
+            torch._foreach_copy_(buffers, before)
+            return metrics
+        after = [b.clone() for b in buffers] if remat else None
+        (lb.total / grad_batches).backward()
+        if remat:
+            torch._foreach_copy_(buffers, after)
+        update(state, grad_batches, grad_clip_val)
+        return metrics
+
+    return train_step
+
+
+def make_eval_step(model: nn.Module, hparams, input_size: int,
+                   compute_dtype: torch.dtype = torch.float32):
+    """-> ``eval_step(batch) -> metrics`` (the validation loss), the
+    forward in eval mode; metrics as device tensors."""
+    device = next(model.parameters()).device
+    anchors = _anchors(hparams, device)
+    weights = _loss_weights(hparams)
+
+    @torch.no_grad()
+    def eval_step(batch: BatchData) -> dict:
+        model.eval()
+        with autocast(device, compute_dtype):
+            outs = model(batch.image)
+        lb = _loss(outs, batch, anchors, input_size, weights)
+        return {"loss": lb.total, "bbox_loss": lb.bbox, "obj_loss": lb.obj}
+
+    return eval_step
