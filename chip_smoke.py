@@ -11,7 +11,8 @@ nor PyYAML. The phases, in order:
   0. the card: name and power limit (nvidia-smi); TF32 off, so that the
      plain versions' f32 convolutions stay f32;
   1. builds the seven CUDA kernels from ``uavdet_tpu_torch/csrc`` (nvcc,
-     sm_90a, one nvcc per source, all at once);
+     sm_90a, one nvcc per source, all at once), and beside them the nvJPEG
+     library of the data path (``csrc/io/jpeg.cu``);
   2. kernel A (stem L1) against its plain version, on uint8 frames
      (16, 640, 640, 3), on bf16 frames of an odd shape, and on uint8 and
      bf16 frames at the shapes of ``ops.stem.L1_EDGE_SHAPES`` (sizes that
@@ -96,6 +97,29 @@ nor PyYAML. The phases, in order:
      three times per batch and agrees with the plain dyconv's;
   7i. float32 train steps on the card against the CPU: the tiny DyYOLO of
      tests/test_trainer.py at 64 px, TF32 off, 4 microbatches each;
+  7j. the data path through the entry points, at cfg6's shape, in a
+     temporary working directory: a synthetic tree (2 sequences x 2
+     cameras x 16 frames per split, 512 px, seed 0) written through
+     nvJPEG, whose decode of those frames is held against the drawn
+     arrays; the decode of PIL's JPEGs (4:2:0 at quality 75 as the JAX
+     writer and Anti-UAV store frames, 4:2:2, grey, 4:4:4;
+     ``data/jpeg_reference.npz``) against PIL's decode of them, with
+     nvJPEG's own RGB conversion beside; ``prepare_dataloader.main``; the train and val pipelines on
+     the card against the same pipelines on the CPU over the same decoded
+     frames (membership, masks and boxes bitwise, pixels within one unit);
+     the pipeline's frames per second alone (4 read and decode threads,
+     and one), decode and frame stage ms per batch, the frame stage at the
+     cameras' sizes (8 RGB 1080x1920 + 8 infrared 512x640, card vs CPU),
+     cfg6's train step fed by the pipeline against painted batches and
+     against the pipeline's batches taken into a list first;
+     the three entry points on their default device, the card:
+     ``train.main`` (DyYOLO at cfg6's shape, 4 train and 2 validation
+     batches, ``eval_ap``: kernels A, B and C once per validation batch,
+     none in a train step), ``evaluate.main --split val --batch 16`` (A,
+     B and C once per batch, its output line and fps) and
+     ``scripts.detect.main`` over the val frames at batch 16 (A, B and C
+     once per batch; its JSON keyed by relative path, in the frames' 512
+     px, equal to the restored detector's boxes at 640 px scaled back);
   8. times, with CUDA events, medians after warm-up: the four detectors per
      batch, and each kernel at its main-path shapes beside its plain
      version and beside one bf16 ``F.conv2d(groups=B)`` call that computes
@@ -158,6 +182,36 @@ TINY = (("DyConv", 8, 3, 1), (16, 3, 2), ("B", 1), (32, 3, 2), ("B", 8),
         (128, 3, 1), ("S",), (32, 1, 1), ("U",), (32, 1, 1), (64, 3, 1),
         ("S",), (16, 1, 1), ("U",), (16, 1, 1), (32, 3, 1), ("S",))
 PARITY_SIZE, PARITY_BATCH, PARITY_MICRO = 64, 2, 4
+# the data path (7j): a synthetic tree of 512 px frames written by nvJPEG
+# (resized to 640 by the pipeline), read by the port's entry points
+DATA_SEQ, DATA_FRAMES, DATA_SIZE = 2, 16, 512
+EVAL_BATCH = 16                      # evaluate's --batch
+DATA_WORKERS = 4                     # the pipelines' read threads
+DATA_EPOCHS = 3                      # timed epochs of the pipeline alone
+# nvJPEG's decode of its own quality-95, 4:4:4 frames against the drawn
+# arrays, mean |diff| per frame in units of 255: what the quantization
+# loses. On the synthetic frames (uniform noise of 0..80, a bright box)
+# that is about 3 units in any JPEG codec, libjpeg's too; a wrong decode
+# (channel order, chroma, offsets) is off by tens.
+JPEG_MEAN_TOL = 4.0
+# the decode of PIL's JPEGs (data/jpeg_reference.npz: 4:2:0 at PIL's
+# defaults as the JAX writer and Anti-UAV store frames, 4:2:2, grey, 4:4:4)
+# against PIL's (libjpeg's) decode of them, in units of 255: nvJPEG's IDCT
+# and libjpeg's differ by at most one unit in a plane, which the colour
+# conversion carries to at most 1 + 1.772 units and a rounding in a
+# channel, rarely; on average a few hundredths, and no bias. nvJPEG's own
+# RGB conversion (printed beside) truncates: half a unit darker on average
+JPEG_REF_MAX, JPEG_REF_MEAN, JPEG_REF_BIAS = 4, 0.1, 0.05
+# detect's score threshold in 7j: evaluate's, so that the barely trained
+# detector reports boxes
+DETECT_SCORE = 0.001
+# its boxes against the restored detector's, scaled back by the smoke: the
+# JSON rounds them to 2 decimals
+DETECT_BOX_TOL = 0.006
+# the frame stage on the card against the CPU on the same decoded frames:
+# float32 sums in another order can move a value across a rounding
+# boundary of the uint8 grid, by one unit
+FRAME_TOL_UNITS = 1
 # float32 losses on the card against the CPU: the CPU tests hold the port's
 # first four steps against JAX's to 1e-5 (tests/test_torch_train_step.py);
 # cuDNN's f32 convolutions and reductions sum in other orders again
@@ -213,6 +267,12 @@ EXPECTED_LAUNCHES = {
     "DySOEM_SimFPN train step": {},
     # per validation batch of Trainer.fit / of the eval step
     "Trainer.fit DyYOLO": {"stem_l1": 1, "stem_l2": 1, "nms": 1},
+    "train entry point DyYOLO": {"stem_l1": 1, "stem_l2": 1, "nms": 1},
+    # per batch of the evaluate and detect entry points
+    "evaluate entry point DyYOLO": {"stem_l1": 1, "stem_l2": 1, "nms": 1},
+    "detect entry point DyYOLO": {"stem_l1": 1, "stem_l2": 1, "nms": 1},
+    # per microbatch fed by the data pipeline
+    "DyYOLO train step fed by the pipeline": {},
     "DySOEM_SimFPN eval step": {"dyconv": 3},
     "stem_fused op": {"stem_fused": 1},
     # one run of a ladder's entry point: every stage, warm-up included
@@ -537,6 +597,12 @@ def main() -> int:
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda} device "
           f"{torch.cuda.get_device_name(0)}", flush=True)
+    import importlib.util
+    import os
+    present = [m for m in ("PIL", "cv2", "yaml", "jax")
+               if importlib.util.find_spec(m) is not None]
+    print(f"host: {os.cpu_count()} CPUs; importable here, and used by "
+          f"neither the port nor this script: {present}", flush=True)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -573,6 +639,13 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     tag = f"[{card}]"
+
+    # the nvJPEG library of the data path (7j) builds beside the kernels
+    from concurrent.futures import ThreadPoolExecutor
+    from uavdet_tpu_torch.data import jpeg
+    build_pool = ThreadPoolExecutor(1)
+    jpeg_build = build_pool.submit(jpeg.build)
+    build_pool.shutdown(wait=False)
 
     def build():
         info = kernels.build()
@@ -1369,6 +1442,386 @@ def main() -> int:
                     f"(rtol {PARITY_RTOL})")
 
     smoke.phase("7i float32 train steps: card vs CPU", f32_train_parity)
+
+    import contextlib
+    import io
+
+    import glob
+
+    from uavdet_tpu_torch import evaluate as evaluate_entry
+    from uavdet_tpu_torch import prepare_dataloader
+    from uavdet_tpu_torch import train as train_entry
+    from uavdet_tpu_torch.scripts import detect as detect_entry
+    from uavdet_tpu_torch.training import CheckpointManager
+    from uavdet_tpu_torch.data import (DataPipeline, load_manifest,
+                                       make_synthetic_dataset)
+    from uavdet_tpu_torch.data import frames as frame_ops
+    from uavdet_tpu_torch.data.synthetic import CARD_QUALITY, synthetic_frames
+
+    data_root = "data/Anti-UAV-RGBT"
+    tree = dict(n_seq=DATA_SEQ, n_frames=DATA_FRAMES, img_size=DATA_SIZE,
+                seed=SEED)
+
+    def data_config():
+        """params.yaml of the data path: cfg6's trainer over the tree."""
+        cfg = trainer_config().to_dict()
+        cfg["dataset"] = {
+            "root_dir": data_root,
+            "train_loader_path": "data/train_manifest.json",
+            "val_loader_path": "data/val_manifest.json",
+            "test_loader_path": "data/test_manifest.json",
+            "batch_size": TRAIN_BATCH, "remote": False,
+            "image_size": [SIZE, SIZE], "workers": DATA_WORKERS,
+            "mosaic": False, "format": "yolo"}
+        cfg["train"]["checkpoint"]["dir"] = "logs/checkpoints"
+        return Config(cfg)
+
+    class HostFrames(DataPipeline):
+        """The pipeline on the CPU with the frames nvJPEG decodes copied to
+        the host in place of PIL's (absent here): the CPU's plan, boxes and
+        frame stage, on the frames the card decodes."""
+
+        def _load(self, path, stream=None):
+            return jpeg.decode([self._read(path)], dev)[0].cpu()
+
+    def pipeline_fps(recs, train, batch, workers):
+        """Frames per second of the pipeline alone over DATA_EPOCHS epochs
+        after one."""
+        pipe = DataPipeline(recs, SIZE, batch, train=train, seed=11,
+                            workers=workers, device=dev)
+        list(pipe)
+        torch.cuda.synchronize()
+        t0, n = time.perf_counter(), 0
+        for _ in range(DATA_EPOCHS):
+            for b in pipe:
+                n += b.image.shape[0]
+        torch.cuda.synchronize()
+        return n / (time.perf_counter() - t0), n
+
+    def pipeline_alone(recs, train, batch):
+        """The pipeline's frames per second alone with DATA_WORKERS read
+        and decode threads and with one, and ms per batch of decode (one
+        thread, one image after another) and of the frame stage."""
+        fps, n = pipeline_fps(recs, train, batch, DATA_WORKERS)
+        fps_1, _ = pipeline_fps(recs, train, batch, 1)
+        datas = []
+        for r in recs[:batch]:
+            with open(r["img_path"], "rb") as f:
+                datas.append(f.read())
+        decode_ms = cuda_ms(lambda: jpeg.decode(datas, dev), 10, 2)
+        decoded = jpeg.decode(datas, dev)
+        mats = ([frame_ops.affine_matrix(np.random.default_rng(i), SIZE)
+                 for i in range(batch)] if train else None)
+        stage_ms = cuda_ms(lambda: frame_ops.frame_stage(decoded, SIZE, mats),
+                           10, 2)
+        return {"frames_per_s": fps, "frames_per_s_1_worker": fps_1,
+                "workers": DATA_WORKERS, "frames": n, "decode_ms": decode_ms,
+                "frame_stage_ms": stage_ms, "batch": batch,
+                "source": f"{DATA_SIZE}x{DATA_SIZE}", "size": SIZE}
+
+    def fed_vs_painted(recs):
+        """cfg6 ms per microbatch fed by the pipeline against the painted
+        batches of 7f, in turns: with DATA_WORKERS read and decode threads,
+        with one, and on the pipeline's batches taken into a list first
+        (the hand-off alone, no producer running beside the step). An
+        epoch's first microbatch waits for the pipeline to start and is
+        timed apart."""
+        model_t, state, step, painted = inputs["train"]
+        pipes = {w: DataPipeline(recs, SIZE, TRAIN_BATCH, train=True,
+                                 seed=11, workers=w, device=dev)
+                 for w in (DATA_WORKERS, 1)}
+        n = len(pipes[1])
+
+        def run(batches):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            first = None
+            m = 0
+            for b in batches:
+                step(state, b)
+                m += 1
+                if first is None:
+                    torch.cuda.synchronize()
+                    first = time.perf_counter()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            return {"first_ms": (first - t0) * 1e3,
+                    "steady_ms": (t1 - first) * 1e3 / (m - 1), "n": m}
+
+        fed = f"fed_{DATA_WORKERS}"
+        variants = {
+            "painted": lambda: run([painted[i % len(painted)]
+                                    for i in range(n)]),
+            fed: lambda: run(pipes[DATA_WORKERS]),
+            f"{fed}_materialized": lambda: run(list(pipes[DATA_WORKERS])),
+            "fed_1": lambda: run(pipes[1]),
+        }
+        order = list(variants) + list(variants)[::-1]
+        out = {k: [] for k in variants}
+        kernels.reset_launch_counts()
+        for which in order:
+            out[which].append(variants[which]())
+        torch.cuda.synchronize()
+        count_launches(smoke, kernels, "DyYOLO train step fed by the pipeline",
+                       sum(r["n"] for v in out.values() for r in v))
+        return out
+
+    def data_path():
+        here = os.getcwd()
+        ddir = os.path.join(workdir, "data_path")
+        os.makedirs(ddir)
+        os.chdir(ddir)   # the entry points write under the working directory
+        try:
+            run_data_path()
+        finally:
+            os.chdir(here)
+
+    def run_data_path():
+        info = jpeg_build.result()
+        print(f"nvJPEG library: nvcc {info.seconds:.1f} s -> {info.path.name}")
+        t0 = time.perf_counter()
+        make_synthetic_dataset(data_root, device=dev, **tree)
+        print(f"synthetic tree ({DATA_SEQ} sequences x 2 cameras x "
+              f"{DATA_FRAMES} frames per split, {DATA_SIZE} px) written "
+              f"through nvJPEG in {time.perf_counter() - t0:.2f} s")
+        # 4. nvJPEG's decode of the frames its encoder wrote
+        errs, signed = [], []
+        for kind, path, arr in synthetic_frames(data_root, **tree):
+            if kind == "frame":
+                with open(path, "rb") as f:
+                    got = jpeg.decode([f.read()], dev)[0]
+                d = got.int() - torch.from_numpy(arr).to(dev).int()
+                errs.append(float(d.abs().float().mean()))
+                signed.append(float(d.float().mean()))
+        smoke.check("nvJPEG decode of its own frames vs the drawn arrays",
+                    max(errs) <= JPEG_MEAN_TOL,
+                    f"{len(errs)} frames at quality {CARD_QUALITY}, 4:4:4: "
+                    f"mean |diff| per frame {min(errs):.3f} to "
+                    f"{max(errs):.3f} units (limit {JPEG_MEAN_TOL}), mean "
+                    f"signed {np.mean(signed):+.3f}")
+        reference = {}
+        for name, (data, want) in jpeg.load_reference().items():
+            want = torch.from_numpy(want).int()
+            d = jpeg.decode([data], dev)[0].cpu().int() - want
+            r = reference[name] = {"max": int(d.abs().max()),
+                                   "mean": float(d.abs().float().mean()),
+                                   "signed": float(d.float().mean())}
+            try:   # nvJPEG's own conversion, for comparison
+                own = jpeg.codec().decode_planes(
+                    data, dev, jpeg.OUTPUT_RGBI,
+                    [(*want.shape[:2], 3)])[0].cpu().int() - want
+                r["nvjpeg_rgb"] = {"max": int(own.abs().max()),
+                                   "mean": float(own.abs().float().mean()),
+                                   "signed": float(own.float().mean())}
+            except RuntimeError as e:
+                r["nvjpeg_rgb"] = str(e)
+            smoke.check(f"nvJPEG decode vs libjpeg (PIL) {name}",
+                        r["max"] <= JPEG_REF_MAX
+                        and r["mean"] <= JPEG_REF_MEAN
+                        and abs(r["signed"]) <= JPEG_REF_BIAS,
+                        f"{tuple(want.shape)}: max |diff| {r['max']} units "
+                        f"(limit {JPEG_REF_MAX}), mean {r['mean']:.4f} "
+                        f"(limit {JPEG_REF_MEAN}), mean signed "
+                        f"{r['signed']:+.4f} (limit {JPEG_REF_BIAS}); "
+                        f"nvJPEG's own RGB: {r['nvjpeg_rgb']}")
+
+        cfg = data_config()
+        counts = prepare_dataloader.main(cfg)
+        smoke.check("prepare_dataloader manifests",
+                    all(counts[s] > 0 for s in ("train", "val", "test"))
+                    and all(os.path.exists(f"data/{s}_manifest.json")
+                            for s in ("train", "val", "test")), f"{counts}")
+        recs = load_manifest(cfg.dataset.train_loader_path)
+        val_recs = load_manifest(cfg.dataset.val_loader_path)
+
+        # 2. and 3.: the card's pipeline against the same pipeline on the
+        # CPU, on the same decoded frames
+        for name, train, batch in (("train", True, TRAIN_BATCH),
+                                   ("val", False, EVAL_BATCH)):
+            kw = dict(input_size=SIZE, batch_size=batch, train=train,
+                      seed=11, workers=DATA_WORKERS)
+            card = list(DataPipeline(recs, device=dev, **kw))
+            host = list(HostFrames(recs, device="cpu", **kw))
+            on_card = all(t.device == dev for c in card for t in c)
+            same = len(card) == len(host) > 0 and all(
+                torch.equal(c.box_mask.cpu(), h.box_mask)
+                and torch.equal(c.boxes.cpu(), h.boxes)
+                for c, h in zip(card, host))
+            smoke.check(f"pipeline {name}: membership, masks and boxes, card "
+                        "vs CPU, bitwise", same and on_card,
+                        f"{len(card)} / {len(host)} batches of {batch}, "
+                        f"{sum(int(c.box_mask.sum()) for c in card)} boxes, "
+                        f"every tensor on {dev}: {on_card}")
+            diff = max(float((torch.round(c.image.cpu() * 255)
+                              - torch.round(h.image * 255)).abs().max())
+                       for c, h in zip(card, host))
+            mean = float(np.mean([float((torch.round(c.image.cpu() * 255)
+                                         - torch.round(h.image * 255)).abs()
+                                        .mean()) for c, h in zip(card, host)]))
+            shape_ok = all(c.image.shape == (c.boxes.shape[0], SIZE, SIZE, 3)
+                           and c.image.dtype == torch.float32 for c in card)
+            smoke.check(f"frame stage {name}: card vs CPU",
+                        diff <= FRAME_TOL_UNITS and shape_ok,
+                        f"max |diff| {diff:.0f} units of 255 (limit "
+                        f"{FRAME_TOL_UNITS}), mean {mean:.4f}")
+
+        readings = {"pipeline": {}, "jpeg_reference": reference}
+        for name, train, batch in (("train", True, TRAIN_BATCH),
+                                   ("val", False, EVAL_BATCH)):
+            r = pipeline_alone(recs, train, batch)
+            readings["pipeline"][name] = r
+            print(f"pipeline alone, {name} batch {batch}, {DATA_SIZE} px "
+                  f"JPEGs -> {SIZE} px: {r['frames_per_s']:.1f} frames/s "
+                  f"with {DATA_WORKERS} workers, "
+                  f"{r['frames_per_s_1_worker']:.1f} with one, over "
+                  f"{r['frames']} frames; decode "
+                  f"{r['decode_ms']:.3f} ms/batch, frame stage "
+                  f"{r['frame_stage_ms']:.3f} ms/batch {tag}")
+        # the frame stage at the cameras' sizes (cfg2's streams), batched
+        # per source size, with the training affine; card against CPU
+        cams = [torch.randint(0, 256, (*hw, 3), dtype=torch.uint8,
+                              device=dev, generator=gen)
+                for hw in [RGB_HW] * DUAL_BATCH + [IR_HW] * DUAL_BATCH]
+        mats = [frame_ops.affine_matrix(np.random.default_rng(i), SIZE)
+                for i in range(len(cams))]
+        cam_ms = cuda_ms(lambda: frame_ops.frame_stage(cams, SIZE, mats),
+                         10, 2)
+        pair = [0, DUAL_BATCH]   # one RGB and one infrared frame
+        got = frame_ops.frame_stage([cams[i] for i in pair], SIZE,
+                                    [mats[i] for i in pair])
+        want = frame_ops.frame_stage([cams[i].cpu() for i in pair], SIZE,
+                                     [mats[i] for i in pair])
+        diff = float((torch.round(got.cpu() * 255)
+                      - torch.round(want * 255)).abs().max())
+        smoke.check("frame stage at the cameras' sizes: card vs CPU",
+                    diff <= FRAME_TOL_UNITS,
+                    f"RGB {RGB_HW} and infrared {IR_HW} -> {SIZE} px, max "
+                    f"|diff| {diff:.0f} units (limit {FRAME_TOL_UNITS})")
+        readings["frame_stage_cameras_ms"] = cam_ms
+        print(f"frame stage of {DUAL_BATCH} RGB {RGB_HW} + {DUAL_BATCH} "
+              f"infrared {IR_HW} uint8 frames -> {SIZE} px with the affine: "
+              f"{cam_ms:.3f} ms per batch of {2 * DUAL_BATCH} {tag}")
+        fed = fed_vs_painted(recs)
+        readings["cfg6_fed_vs_painted"] = fed
+        print("cfg6 train ms per microbatch, steady (an epoch's first "
+              "microbatch apart) / first: " + "; ".join(
+                  f"{k} {[round(r['steady_ms'], 3) for r in v]} / "
+                  f"{[round(r['first_ms'], 3) for r in v]}"
+                  for k, v in fed.items()) + f" {tag}")
+
+        # 1. and 5.: train.main, evaluate.main and scripts.detect.main at
+        # cfg6's shape, each on its default device
+        kernels.reset_launch_counts()
+        final = train_entry.main(cfg, [])
+        torch.cuda.synchronize()
+        count_launches(smoke, kernels, "train entry point DyYOLO",
+                       TRAIN_VAL_BATCHES)
+        names = sorted(os.listdir("logs/checkpoints"))
+        smoke.check("train entry point: metrics.json, best and last",
+                    os.path.exists("dvclive/metrics.json")
+                    and any(n.startswith("best-") for n in names)
+                    and "last" in names and np.isfinite(final["val_loss"])
+                    and final["val_AP"] >= 0, f"{names}, {final}")
+        # twice: the first call's fps carries the new model's first
+        # forward (cuDNN's choice of algorithms), as the JAX package's
+        # carries its compile
+        n_eval = -(-len(val_recs) // EVAL_BATCH)
+        lines = []
+        for run_i in range(2):
+            kernels.reset_launch_counts()
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                evaluate_entry.main(cfg, ["--split", "val", "--batch",
+                                          str(EVAL_BATCH)])
+            torch.cuda.synchronize()
+            text = buf.getvalue()
+            print(text, end="")
+            count_launches(smoke, kernels, "evaluate entry point DyYOLO",
+                           n_eval)
+            line = json.loads(text.strip().splitlines()[-1])
+            smoke.check("evaluate entry point: output line",
+                        {"map", "map_50", "images", "fps"} <= set(line)
+                        and line["images"] == len(val_recs)
+                        and "Restored checkpoint 'last'" in text,
+                        f"{len(val_recs)} frames in {n_eval} batches: {line}")
+            lines.append(line)
+        readings["evaluate"] = {"fps": [x["fps"] for x in lines],
+                                "images": lines[0]["images"],
+                                "batch": EVAL_BATCH, "map": lines[0]["map"]}
+        print(f"evaluate: {readings['evaluate']['fps']} fps (two runs) over "
+              f"{lines[0]['images']} frames at batch {EVAL_BATCH} {tag}")
+        readings["detect"] = detect_path(cfg)
+        print(json.dumps({"data": readings}))
+
+    def detect_path(cfg):
+        """``scripts.detect.main`` over the val frames, then the same
+        detector restored here on the first batch: its boxes at 640 px
+        scaled back to the frames' pixels must be the JSON's."""
+        val_glob = os.path.join(data_root, "val", "*", "*", "*.jpg")
+        paths = sorted(glob.glob(val_glob))
+        n_batches = -(-len(paths) // EVAL_BATCH)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        rc = detect_entry.main(cfg, ["--images", val_glob, "--out",
+                                     "dets.json", "--ckpt", "last",
+                                     "--score", str(DETECT_SCORE),
+                                     "--batch", str(EVAL_BATCH)])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        count_launches(smoke, kernels, "detect entry point DyYOLO",
+                       n_batches)
+        with open("dets.json") as f:
+            dets = json.load(f)
+        root = os.path.join(data_root, "val")
+        keys = {os.path.relpath(p, root) for p in paths}
+        n_det = sum(len(v["scores"]) for v in dets.values())
+
+        hp = cfg.model.hparams
+        ck = cfg.train.checkpoint
+        model_d = seeded_model(cfg.model.name, hp, 0, dev,
+                               dtype=torch.float32)
+        CheckpointManager(ck.dir, monitor=ck.monitor, mode=ck.mode).restore(
+            train_state(model_d, hp), "last")
+        model_d.to(bf16).eval()
+        detect = make_detector(model_d, hp, SIZE,
+                               score_threshold=DETECT_SCORE,
+                               compute_dtype=bf16)
+        chunk = paths[:EVAL_BATCH]
+        datas = []
+        for p in chunk:
+            with open(p, "rb") as f:
+                datas.append(f.read())
+        decoded = frame_ops.decode(datas, dev)
+        x = frame_ops.resize_frames(decoded, SIZE, antialias=True)
+        d = detect(x.permute(0, 2, 3, 1).to(torch.uint8))
+        scale = torch.tensor([DATA_SIZE / SIZE] * 4, device=dev)
+        err, same_counts = 0.0, True
+        for i, p in enumerate(chunk):
+            keep = d.valid[i] & (d.scores[i].float() >= DETECT_SCORE)
+            want = (d.boxes[i][keep].float() * scale).cpu().numpy()
+            got = np.asarray(dets[os.path.relpath(p, root)]["boxes_xyxy"],
+                             np.float64).reshape(-1, 4)
+            same_counts &= got.shape == want.shape
+            if got.shape == want.shape and len(got):
+                err = max(err, float(np.abs(got - want).max()))
+        smoke.check("detect entry point: path-keyed JSON in original pixels",
+                    rc == 0 and set(dets) == keys and n_det > 0
+                    and same_counts and err <= DETECT_BOX_TOL,
+                    f"{len(dets)} frames keyed like "
+                    f"{sorted(dets)[0]!r}, {n_det} detections at score >= "
+                    f"{DETECT_SCORE}; first batch against the restored "
+                    f"detector scaled by {DATA_SIZE}/{SIZE}: counts equal "
+                    f"{same_counts}, max |diff| {err:.4f} px (limit "
+                    f"{DETECT_BOX_TOL})")
+        fps = len(paths) / seconds
+        print(f"detect: {len(paths)} frames in {seconds:.2f} s "
+              f"({fps:.1f} frames/s, files read, decoded, detected and "
+              f"written to JSON) {tag}")
+        return {"frames": len(paths), "seconds": seconds, "fps": fps,
+                "detections": n_det}
+
+    smoke.phase("7j data path: prepare_dataloader, train, evaluate, detect",
+                data_path)
 
     def time_pair(name, kern, plain, lib, iters=ITERS, warmup=WARMUP,
                   plain_iters=ITERS, plain_warmup=WARMUP):

@@ -145,7 +145,8 @@ def test_cpu_detector_launches_no_kernel(rng, models):
 
 def test_port_imports_no_jax():
     """The port runs where JAX is absent: importing it loads neither JAX
-    nor the JAX package, and builds no kernel."""
+    nor the JAX package (nor PIL, cv2 or matplotlib, which the card's host
+    lacks), and builds no kernel and no nvJPEG library."""
     code = ("import sys\n"
             "import uavdet_tpu_torch.inference, uavdet_tpu_torch.kernels\n"
             "import uavdet_tpu_torch.utils.seeding\n"
@@ -169,11 +170,27 @@ def test_port_imports_no_jax():
             "import uavdet_tpu_torch.ops.map\n"
             "import uavdet_tpu_torch.utils.datatypes\n"
             "import uavdet_tpu_torch.utils.config\n"
+            "import uavdet_tpu_torch.data, uavdet_tpu_torch.data.antiuav\n"
+            "import uavdet_tpu_torch.data.remote, uavdet_tpu_torch.data.jpeg\n"
+            "import uavdet_tpu_torch.data.frames\n"
+            "import uavdet_tpu_torch.data.mosaic\n"
+            "import uavdet_tpu_torch.data.synthetic\n"
+            "import uavdet_tpu_torch.data.pipeline\n"
+            "import uavdet_tpu_torch.prepare_dataloader\n"
+            "import uavdet_tpu_torch.train, uavdet_tpu_torch.evaluate\n"
+            "import uavdet_tpu_torch.scripts.detect\n"
+            "import uavdet_tpu_torch.utils.viz\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'uavdet_tpu', 'yaml')]\n"
             "assert not bad, bad\n"
             "kernels = uavdet_tpu_torch.kernels\n"
-            "assert not kernels.build.cache_info().currsize\n")
+            "assert not kernels.build.cache_info().currsize\n"
+            "jpeg = uavdet_tpu_torch.data.jpeg\n"
+            "assert not jpeg.build.cache_info().currsize\n"
+            "assert not jpeg.codec.cache_info().currsize\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('PIL', 'cv2', 'matplotlib')]\n"
+            "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)

@@ -24,9 +24,12 @@ def test_variant_substitutions_apply(tmp_path, subs):
     a changed copy (or, for the base, an equal one)."""
     kernel_probe.substitute(kernels.CSRC, subs, tmp_path / "v")
     changed = {name for name, _, _ in subs}
-    for src in kernels.CSRC.iterdir():
-        same = (tmp_path / "v" / src.name).read_text() == src.read_text()
-        assert same == (src.name not in changed), src.name
+    for src in kernels.CSRC.rglob("*"):
+        if src.is_dir():
+            continue
+        rel = src.relative_to(kernels.CSRC)
+        same = (tmp_path / "v" / rel).read_text() == src.read_text()
+        assert same == (src.name not in changed), rel
 
 
 def test_substitute_raises_on_text_that_is_gone(tmp_path):

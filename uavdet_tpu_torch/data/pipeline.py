@@ -1,0 +1,267 @@
+"""The data pipeline: manifest -> batches of frames on the device.
+
+The port of ``uavdet_tpu/data/pipeline.py`` ``DataPipeline``, with the same
+constructor surface and semantics: epoch order from
+``default_rng(seed + epoch)``; with ``workers > 1`` one RNG per sample from
+``SeedSequence([seed, epoch]).spawn(n)``, else the order's RNG shared in
+sequence; samples whose boxes all degenerate dropped (the reference
+collate's drop-empty); boxes padded to ``max_boxes`` with a mask,
+normalized xyxy; ``fmt`` 'yolo' or 'custom'; ``drop_last``; ``len()``.
+
+What happens where:
+
+* a pool of ``workers`` threads, a bounded window ahead: file reads and
+  decodes (PIL on the CPU; nvJPEG on the card, one decoder state per
+  thread, onto a side CUDA stream);
+* host: from each frame's size (on the card read from the JPEG header when
+  its output is allocated), the RNG draws and the box arithmetic
+  (``frames.box_path``, numpy, the JAX package's operations), so a batch's
+  membership and boxes do not depend on the device; boxes and masks staged
+  in pinned buffers;
+* device (``device``, the card unless the caller names the CPU): the frame
+  stage (``frames.frame_stage``: resize, training affine, /255).
+
+The hand-off on the card: a producer thread runs the frame stage on the
+side stream and copies boxes and masks ``non_blocking`` from pinned memory
+on it; it records one event per batch. ``__iter__``
+makes the consumer's current stream wait on that event and calls
+``record_stream`` on every tensor handed over, so the caching allocator
+does not reuse their memory early. ``prefetch`` batches are in flight.
+Batches come out as ``BatchData`` on the device (image (B, S, S, 3) float32
+in [0, 1]), so ``Trainer._to_device`` copies nothing. An error in the
+producer (a read, a decode, a build of the nvJPEG library) is raised by
+``__iter__``.
+
+Not ported: the mosaic pixel path (Lanczos-4; ``mosaic=True`` raises) and
+the multi-host sharded decode (``set_local_rows`` raises); the JAX
+package's native C++ loader has no counterpart (nvJPEG and the device
+resize do its job on the card).
+"""
+
+import collections
+import queue
+import threading
+from concurrent.futures import ThreadPoolExecutor
+from typing import Iterator, List, Optional
+
+import numpy as np
+import torch
+
+from ..utils.datatypes import BatchData
+from . import frames
+from .remote import read_bytes
+
+_END = object()
+
+
+class _Failure:
+    def __init__(self, error: BaseException):
+        self.error = error
+
+
+def _put(q: queue.Queue, item, stop: threading.Event) -> bool:
+    """Put unless the consumer has gone (``stop``); -> whether it was put."""
+    while not stop.is_set():
+        try:
+            q.put(item, timeout=0.05)
+            return True
+        except queue.Full:
+            continue
+    return False
+
+
+class DataPipeline:
+    """Epoch iterator over a manifest producing BatchData on ``device``."""
+
+    def __init__(self, records: List[dict], input_size: int, batch_size: int,
+                 train: bool, seed: int = 11, max_boxes: int = 8,
+                 mosaic: bool = False, shuffle: Optional[bool] = None,
+                 drop_last: bool = True, fs=None, prefetch: int = 2,
+                 workers: int = 1, fmt: str = "yolo", device="cuda"):
+        if mosaic:
+            raise NotImplementedError(
+                "mosaic=True: the mosaic pixel path (Lanczos-4 resize into "
+                "quadrants) is not ported to uavdet_tpu_torch yet; see "
+                "ROADMAP.md queue 1, 'the mosaic pixel path'")
+        if fmt not in ("yolo", "custom"):
+            raise ValueError(f"unknown dataset format: {fmt!r}")
+        self.device = torch.device(device)
+        if self.device.type not in ("cpu", "cuda"):
+            raise ValueError(f"DataPipeline runs on the CPU or a CUDA "
+                             f"device, not {self.device}")
+        self.records = records
+        self.input_size = input_size
+        self.batch_size = batch_size
+        self.train = train
+        self.max_boxes = max_boxes
+        self.shuffle = train if shuffle is None else shuffle
+        self.drop_last = drop_last
+        self.seed = seed
+        self.fs = fs
+        # one remote filesystem (a paramiko channel, an fsspec instance) is
+        # not safe for concurrent reads: they are serialized
+        self._fs_lock = threading.Lock()
+        self.prefetch = max(1, int(prefetch))
+        self.workers = max(1, int(workers))
+        self.fmt = fmt
+        self._epoch = 0
+
+    def set_local_rows(self, rows) -> bool:
+        raise NotImplementedError(
+            "set_local_rows: the multi-host sharded decode is not ported to "
+            "uavdet_tpu_torch; it comes with multi-device training "
+            "(ROADMAP.md queue 1 item 8)")
+
+    def __len__(self):
+        n = len(self.records) // self.batch_size
+        if not self.drop_last and len(self.records) % self.batch_size:
+            n += 1
+        return n
+
+    # ------------------------------------------------------------- host
+
+    def _read(self, path: str) -> bytes:
+        if self.fs is not None:
+            with self._fs_lock:
+                return read_bytes(path, self.fs)
+        return read_bytes(path)
+
+    def _load(self, path: str, stream=None) -> torch.Tensor:
+        """In a read thread: the decoded (H, W, 3) uint8 frame. On the card
+        nvJPEG decodes it onto the producer's side ``stream``; its shape is
+        known on the host at once (from the JPEG header)."""
+        data = self._read(path)
+        if stream is None:
+            return frames.decode_cpu(data)
+        with torch.cuda.device(self.device), torch.cuda.stream(stream):
+            return frames.decode([data], self.device)[0]
+
+    def _samples(self, ex, order, stream) -> Iterator[tuple]:
+        """(record index, decoded frame) in ``order``, the reads and decodes
+        running ahead in the pool by a bounded window."""
+        ahead = max(self.batch_size * 4, self.workers * 4)
+        pending = collections.deque()
+        it = iter(order)
+        while True:
+            while len(pending) < ahead:
+                i = next(it, None)
+                if i is None:
+                    break
+                pending.append((i, ex.submit(
+                    self._load, self.records[i]["img_path"], stream)))
+            if not pending:
+                return
+            i, fut = pending.popleft()
+            yield i, fut.result()
+
+    def _plan(self, ex, stream=None) -> Iterator[list]:
+        """One epoch's batches: lists of (decoded frame, float32 boxes,
+        affine matrix or None) of the samples that keep a box; the boxes
+        and membership from the host alone."""
+        rng = np.random.default_rng(self.seed + self._epoch)
+        order = (rng.permutation(len(self.records)) if self.shuffle
+                 else np.arange(len(self.records)))
+        rngs = None
+        if self.workers > 1:
+            rngs = [np.random.default_rng(s) for s in np.random.SeedSequence(
+                [self.seed, self._epoch]).spawn(len(order))]
+        kept = []
+        for pos, (i, frame) in enumerate(self._samples(ex, order, stream)):
+            h, w = frame.shape[:2]
+            boxes, mat = frames.box_path(
+                np.asarray([self.records[i]["bbox"]], np.float32), w, h,
+                self.input_size, self.train,
+                rngs[pos] if rngs is not None else rng)
+            if len(boxes) == 0:
+                continue  # drop-empty (collate parity, both reference fns)
+            kept.append((frame, boxes, mat))
+            if len(kept) == self.batch_size:
+                yield kept
+                kept = []
+        if kept and not self.drop_last:
+            yield kept
+        self._epoch += 1
+
+    def _collate_boxes(self, boxes_list) -> tuple:
+        b = len(boxes_list)
+        if self.fmt == "custom":
+            # _custom_collate_fn contract (reference _helper.py:113-129):
+            # torch.stack over per-sample box tensors — requires equal
+            # box counts per sample
+            counts = {len(bx) for bx in boxes_list}
+            if len(counts) > 1:
+                raise ValueError(
+                    "format='custom' stacks box tensors; got unequal "
+                    f"per-sample box counts {sorted(counts)}")
+        boxes = np.zeros((b, self.max_boxes, 4), np.float32)
+        mask = np.zeros((b, self.max_boxes), bool)
+        for i, bx in enumerate(boxes_list):
+            n = min(len(bx), self.max_boxes)
+            boxes[i, :n] = bx[:n] / self.input_size  # normalized xyxy
+            mask[i, :n] = True
+        return boxes, mask
+
+    # ----------------------------------------------------------- device
+
+    def _materialize(self, kept) -> BatchData:
+        """One planned batch on the device: the frame stage over its
+        decoded frames (on the card inside the producer's side stream), and
+        the boxes and masks, staged in pinned memory there."""
+        image = frames.frame_stage(
+            [k[0] for k in kept], self.input_size,
+            [k[2] for k in kept] if self.train else None)
+        boxes, mask = self._collate_boxes([k[1] for k in kept])
+        boxes, mask = torch.from_numpy(boxes), torch.from_numpy(mask)
+        if self.device.type == "cuda":
+            boxes = boxes.pin_memory().to(self.device, non_blocking=True)
+            mask = mask.pin_memory().to(self.device, non_blocking=True)
+        return BatchData(image=image, boxes=boxes, box_mask=mask)
+
+    def _produce(self, q: queue.Queue, stop: threading.Event) -> None:
+        ex = ThreadPoolExecutor(self.workers)
+        try:
+            if self.device.type == "cuda":
+                from .jpeg import codec
+                codec()   # made once, before the read threads share it
+                side = torch.cuda.Stream(self.device)
+                with torch.cuda.device(self.device), torch.cuda.stream(side):
+                    for kept in self._plan(ex, side):
+                        batch = self._materialize(kept)
+                        event = torch.cuda.Event()
+                        event.record(side)
+                        if not _put(q, (batch, event), stop):
+                            return
+            else:
+                for kept in self._plan(ex):
+                    if not _put(q, (self._materialize(kept), None), stop):
+                        return
+        except BaseException as e:   # handed to the consumer, which raises
+            _put(q, _Failure(e), stop)
+        finally:
+            ex.shutdown(wait=True, cancel_futures=True)
+            _put(q, _END, stop)
+
+    def __iter__(self) -> Iterator[BatchData]:
+        """Iterate one epoch's batches, ``prefetch`` of them in flight."""
+        q: queue.Queue = queue.Queue(maxsize=self.prefetch)
+        stop = threading.Event()
+        t = threading.Thread(target=self._produce, args=(q, stop),
+                             daemon=True)
+        t.start()
+        try:
+            while True:
+                item = q.get()
+                if item is _END:
+                    break
+                if isinstance(item, _Failure):
+                    raise item.error
+                batch, event = item
+                if event is not None:
+                    cur = torch.cuda.current_stream(self.device)
+                    cur.wait_event(event)
+                    for tensor in batch:
+                        tensor.record_stream(cur)
+                yield batch
+        finally:
+            stop.set()   # a consumer that stops early ends the producer
+            t.join()

@@ -1,0 +1,121 @@
+"""Evaluation entry: detector over a split's manifest -> mAP + fps, the
+port's ``evaluate.py``.
+
+    python -m uavdet_tpu_torch.evaluate [--split val|test] [--ckpt last|best]
+        [--limit N] [--batch 16] [--dump dets.json] [--device cpu]
+
+Reads params.yaml for everything else. Restores the ``CheckpointManager``
+checkpoint (``state.pt``; the seeded initial weights of seed 0 when there
+is none, with a warning), serves the model through ``make_detector``
+(score threshold 0.001, IoU 0.5, 300 kept) in the device's serving dtype
+(bf16 on the card, where a DyYOLO runs kernels A, B and C; float32 on the
+CPU), over the split's frames from a ``DataPipeline`` in order, and prints
+one JSON line: torchmetrics-compatible mAP (cxcywh, IoU 0.5:0.95,
+max_det 300), ``images`` and ``fps`` (images over the seconds spent in the
+detector, its results on the host included).
+"""
+
+import argparse
+import json
+import time
+
+import torch
+
+
+def evaluate_batches(detect, batches, input_size: int,
+                     dump: bool = False) -> tuple:
+    """The evaluation loop of the JAX package's ``evaluate.py:81-111``:
+    -> (metric dict with ``images`` and ``fps``, per-image detections as
+    lists when ``dump``, else [])."""
+    from .ops.map import MeanAveragePrecision, add_detections
+    metric = MeanAveragePrecision()
+    n_img, t_total = 0, 0.0
+    dumped = []
+    for batch in batches:
+        t0 = time.perf_counter()
+        det = detect(batch.image)
+        det.boxes.cpu()   # waits for the device
+        t_total += time.perf_counter() - t0
+        for row in add_detections(metric, det, batch.boxes, batch.box_mask,
+                                  input_size):
+            if dump:
+                dumped.append({k: v.tolist() for k, v in row.items()})
+            n_img += 1
+    out = metric.compute()
+    out["images"] = n_img
+    out["fps"] = round(n_img / t_total, 1) if t_total else None
+    return out, dumped
+
+
+def main(config=None, argv=None) -> dict:
+    """-> the printed metric dict. ``config`` is a ``utils.config.Config``
+    (params.yaml is read when it is None)."""
+    ap = argparse.ArgumentParser(description="Evaluate a detector of the "
+                                 "port on a split's manifest.")
+    ap.add_argument("--split", default="val", choices=["val", "test"])
+    ap.add_argument("--ckpt", default="last")
+    ap.add_argument("--limit", type=int, default=None)
+    ap.add_argument("--batch", type=int, default=16)
+    ap.add_argument("--dump", default=None,
+                    help="write per-image detections (xyxy px + scores) "
+                         "to this JSON path — the parity-protocol artifact")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device (default: the card)")
+    args = ap.parse_args(argv)
+
+    from .data import DataPipeline, load_manifest
+    from .data.remote import make_filesystem
+    from .inference import make_detector
+    from .models.registry import serving_dtype
+    from .training import CheckpointManager, build_optimizer, init_state
+    from .utils.seeding import seeded_model
+
+    if config is None:
+        from .utils.config import load_params
+        config = load_params("params.yaml")
+    hparams = config.model.hparams
+    input_size = int(config.dataset.image_size[0])
+    device = torch.device(args.device)
+
+    # the training state's float32 weights, restored, then cast for serving
+    model = seeded_model(config.model.name, hparams, 0, device,
+                         dtype=torch.float32)
+    state = init_state(model, *build_optimizer(model.parameters(), hparams))
+    ck = config.train.checkpoint
+    ckpt = CheckpointManager(ck.dir, monitor=ck.monitor, mode=ck.mode)
+    name = args.ckpt
+    if name == "best" and ckpt.best_path:
+        name = ckpt.best_path
+    if ckpt.has_checkpoint(name):
+        ckpt.restore(state, name)
+        print(f"Restored checkpoint '{name}'")
+    else:
+        print(f"WARNING: no checkpoint '{name}', evaluating random init")
+    dtype = serving_dtype(device)
+    model.to(dtype).eval()
+
+    ds = config.dataset
+    records = load_manifest(ds.val_loader_path if args.split == "val"
+                            else ds.test_loader_path)
+    if args.limit:
+        records = records[:args.limit]
+    pipe = DataPipeline(records, input_size=input_size,
+                        batch_size=args.batch, train=False, shuffle=False,
+                        drop_last=False,
+                        fs=make_filesystem(ds.root_dir,
+                                           bool(ds.get("remote", False))),
+                        workers=int(ds.get("workers", 1) or 1),
+                        device=device)
+    detect = make_detector(model, hparams, input_size, compute_dtype=dtype)
+    out, dumped = evaluate_batches(detect, pipe, input_size,
+                                   dump=args.dump is not None)
+    if args.dump is not None:
+        with open(args.dump, "w") as f:
+            json.dump({"images": dumped}, f)
+    print(json.dumps({k: (round(v, 4) if isinstance(v, float) else v)
+                      for k, v in out.items()}))
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -9,12 +9,15 @@ Pure numpy (evaluation happens on the host after the jitted pipeline);
 accumulate with ``update(preds, targets)`` per image, then ``compute()``.
 
 The port's own copy of ``uavdet_tpu/ops/map.py`` (that package imports
-JAX); ``tests/test_torch_train_optim.py`` holds the two equal.
+JAX); ``tests/test_torch_train_optim.py`` holds the two equal. Besides,
+``add_detections`` feeds it a batch of the detector's ``Detections``, for
+``evaluate`` and ``Trainer.validate``.
 """
 
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 _AREA_RNG = {
     "all": (0.0, 1e10),
@@ -216,3 +219,26 @@ def calculate_ap(pred_boxes, pred_obj, target_boxes, max_det: int = 300,
     m = MeanAveragePrecision(iou_thresholds=iou_th, max_det=max_det)
     m.update(pred_boxes, pred_obj, target_boxes)
     return m.compute()
+
+
+def _xyxy_to_cxcywh(b: np.ndarray) -> np.ndarray:
+    return np.stack([(b[:, 0] + b[:, 2]) / 2, (b[:, 1] + b[:, 3]) / 2,
+                     b[:, 2] - b[:, 0], b[:, 3] - b[:, 1]], -1)
+
+
+def add_detections(metric: "MeanAveragePrecision", det, gt_boxes, gt_mask,
+                   input_size: int) -> list:
+    """Feed one batch's ``Detections`` (xyxy pixels) and its normalized
+    ground truth to ``metric`` (cxcywh); -> per image ``{"boxes_xyxy",
+    "scores", "gt_xyxy"}`` of the valid detections."""
+    boxes = det.boxes.float().cpu().numpy()
+    scores = det.scores.float().cpu().numpy()
+    valid = det.valid.cpu().numpy()
+    gt = torch.as_tensor(gt_boxes).float().cpu().numpy() * input_size
+    gt_mask = torch.as_tensor(gt_mask).cpu().numpy()
+    out = []
+    for i in range(boxes.shape[0]):
+        b, s, g = boxes[i][valid[i]], scores[i][valid[i]], gt[i][gt_mask[i]]
+        metric.update(_xyxy_to_cxcywh(b), s, _xyxy_to_cxcywh(g))
+        out.append({"boxes_xyxy": b, "scores": s, "gt_xyxy": g})
+    return out

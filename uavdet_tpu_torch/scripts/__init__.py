@@ -1,1 +1,2 @@
-"""Command-line entry points of the port: the kernels' stage ladders."""
+"""Command-line entry points of the port: detection over image files, and
+the kernels' stage ladders and probes."""

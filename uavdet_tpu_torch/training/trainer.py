@@ -19,7 +19,8 @@ weights (``train.seed``, ``utils.seeding.init_weights``); ``fit`` trains it
 from its current weights, so a caller may load others into
 ``trainer.model`` first. ``train_pipe`` and ``val_pipe`` are iterables with
 ``len()`` whose items have ``image``, ``boxes`` and ``box_mask`` (numpy
-arrays or tensors); the trainer moves them to its device.
+arrays or tensors), such as ``data.DataPipeline``; the trainer moves them
+to its device (a pipeline on the same device hands them over there).
 """
 
 import contextlib
@@ -31,6 +32,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..ops.map import MeanAveragePrecision, add_detections
 from ..utils.datatypes import BatchData
 from ..utils.seeding import seeded_model
 from .checkpoint import CheckpointManager
@@ -255,7 +257,6 @@ class Trainer:
         ap_metric = None
         if self.eval_ap:
             from ..inference import make_detector
-            from ..ops.map import MeanAveragePrecision
             ap_metric = MeanAveragePrecision()
             if self._detector is None:
                 self._detector = make_detector(
@@ -280,18 +281,5 @@ class Trainer:
         self.model.eval()
         with autocast(self.device, self.compute_dtype):
             det = detect(batch.image)
-        boxes = det.boxes.float().cpu().numpy()
-        scores = det.scores.float().cpu().numpy()
-        valid = det.valid.cpu().numpy()
-        gt = batch.boxes.float().cpu().numpy() * self.input_size
-        gt_mask = batch.box_mask.cpu().numpy()
-        for i in range(boxes.shape[0]):
-            b = boxes[i][valid[i]]
-            cxcywh = np.stack([(b[:, 0] + b[:, 2]) / 2,
-                               (b[:, 1] + b[:, 3]) / 2,
-                               b[:, 2] - b[:, 0], b[:, 3] - b[:, 1]], -1)
-            g = gt[i][gt_mask[i]]
-            g_cx = np.stack([(g[:, 0] + g[:, 2]) / 2,
-                             (g[:, 1] + g[:, 3]) / 2,
-                             g[:, 2] - g[:, 0], g[:, 3] - g[:, 1]], -1)
-            ap_metric.update(cxcywh, scores[i][valid[i]], g_cx)
+        add_detections(ap_metric, det, batch.boxes, batch.box_mask,
+                       self.input_size)

@@ -1,4 +1,5 @@
-"""Seeded random weights for a model of the port.
+"""Seeding: ``seed_everything`` for the entry points, and seeded random
+weights for a model of the port.
 
 The weights are drawn on the CPU from one explicit ``torch.Generator`` and
 then moved, so one seed gives the same weights on every device. Convs and
@@ -10,13 +11,24 @@ range of a trained detector.
 """
 
 import math
+import random
 
+import numpy as np
 import torch
 from torch import nn
 
 from ..models.dysoem_simfpn import Experts
 from ..models.layers import DyConvModule, ResidualBlock
 from ..models.registry import build_model, serving_dtype
+
+
+def seed_everything(seed: int) -> None:
+    """Seed python, numpy and torch (the JAX package's ``seed_everything``
+    seeds python and numpy and returns a JAX key; torch keeps its own
+    generator state)."""
+    random.seed(seed)
+    np.random.seed(seed % (2**32))
+    torch.manual_seed(seed)
 
 
 @torch.no_grad()
