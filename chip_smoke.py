@@ -120,6 +120,20 @@ nor PyYAML. The phases, in order:
      ``scripts.detect.main`` over the val frames at batch 16 (A, B and C
      once per batch; its JSON keyed by relative path, in the frames' 512
      px, equal to the restored detector's boxes at 640 px scaled back);
+  7k. export: ``export.export_detector`` artifacts of phase 6's DyYOLO (640
+     px, batch 16, bf16), of DySOEM_SimFPN (1280 px, batch 2), of the
+     dual-stream DyYOLO (2 RGB 1080x1920 + 2 infrared 512x640) and of
+     BaselineModel (batch 1), and the artifact of
+     ``scripts.export_detector.main --ckpt last`` over 7j's checkpoint on
+     its default device; all five loaded and run (3 calls each) in one
+     fresh Python process that imports only ``uavdet_tpu_torch.export``,
+     which reports its launch counts and that no module under ``models/``
+     and no JAX was imported there; each artifact's detections against its
+     live detector's (for the CLI's, the detector ``evaluate`` restores);
+     then a Lightning-format checkpoint of phase 6's DyYOLO through
+     ``scripts.port_reference_checkpoint`` and ``evaluate.main --ckpt
+     last`` (A, B and C once per batch), its mAP and dump against the same
+     weights loaded directly;
   8. times, with CUDA events, medians after warm-up: the four detectors per
      batch, and each kernel at its main-path shapes beside its plain
      version and beside one bf16 ``F.conv2d(groups=B)`` call that computes
@@ -138,8 +152,11 @@ nor PyYAML. The phases, in order:
      tail's two layers it replaces; a cfg6 train microbatch (and with
      PyTorch's own BatchNorm update beside the port's), images per second,
      ``Trainer.validate`` per batch and the peak device memory of training;
-  9. a ``torch.profiler`` window of each detector and of two cfg6 train
-     microbatches: device time by kernel.
+     7k's DyYOLO artifact against the live detector, in turns; the host's
+     time to issue one call of kernels A, B and C through their registered
+     operators and through the CUDA wrappers called directly;
+  9. a ``torch.profiler`` window of each detector, of 7k's DyYOLO artifact
+     and of two cfg6 train microbatches: device time by kernel.
 
 No detector path may launch kernel E, F or G: their paths are the op and
 the two command-line entries, as in the JAX package.
@@ -275,6 +292,17 @@ EXPECTED_LAUNCHES = {
     "DyYOLO train step fed by the pipeline": {},
     "DySOEM_SimFPN eval step": {"dyconv": 3},
     "stem_fused op": {"stem_fused": 1},
+    # per call of an artifact of export.export_detector, loaded in a fresh
+    # process (7k)
+    "exported DyYOLO": {"stem_l1": 1, "stem_l2": 1, "nms": 1},
+    "exported DySOEM_SimFPN": {"nms": 1, "dyconv": 3},
+    "exported DyYOLO dual": {"stem_l1": 1, "stem_l2": 1, "nms": 1},
+    "exported baseline": {"nms": 1},
+    "exported DyYOLO, scripts.export_detector --ckpt last": {
+        "stem_l1": 1, "stem_l2": 1, "nms": 1},
+    # per batch of evaluate over a ported reference checkpoint (7k)
+    "evaluate entry point, ported checkpoint": {"stem_l1": 1, "stem_l2": 1,
+                                                "nms": 1},
     # one run of a ladder's entry point: every stage, warm-up included
     "l2_ablate": {"stem_l2_stage": 5 * (LADDER_ITERS + 3)},
     "block_ablate": {"post_stem_block": 4 * (LADDER_ITERS + 3)},
@@ -333,6 +361,21 @@ def kernel_row_ms(fn, key: str, iters: int):
     return us / iters / 1e3 if us > 0 else None
 
 
+def host_us(fn, calls: int = 50) -> float:
+    """Host time to issue one call of ``fn``, in us: the mean over ``calls``
+    calls made back to back without waiting for the card (fewer than its
+    launch queue holds), after one warm-up call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -347,10 +390,12 @@ def bound(n_bytes: float, n_ops: float, ops_per_s: float) -> dict:
             "bytes": int(n_bytes), "operations": int(n_ops)}
 
 
-def count_launches(smoke, kernels, path: str, requests: int) -> None:
-    """Reads the launch counts of one main path's run and holds them against
-    what that path launches per request."""
-    counts = kernels.launch_counts()
+def count_launches(smoke, kernels, path: str, requests: int,
+                   counts=None) -> None:
+    """Reads the launch counts of one main path's run (or takes ``counts``,
+    read in another process) and holds them against what that path launches
+    per request."""
+    counts = kernels.launch_counts() if counts is None else counts
     want = {k: EXPECTED_LAUNCHES[path].get(k, 0) * requests for k in counts}
     for name, n in counts.items():
         smoke.stats[name]["launches"] += n
@@ -620,6 +665,8 @@ def main() -> int:
     from uavdet_tpu_torch.ops.dyconv import (EDGE_SHAPES, dyconv,
                                              dyconv_plain, parity_sums,
                                              rfold)
+    from uavdet_tpu_torch.ops.nms import _nms_alive_cuda
+    from uavdet_tpu_torch.ops.stem import _stem_l1_cuda, _stem_l2_cuda
     from uavdet_tpu_torch.ops.nms import (NMS_EDGE_CASES, batched_nms,
                                           nms_alive, nms_alive_plain,
                                           nms_edge_case, nms_empty_launch,
@@ -1041,6 +1088,7 @@ def main() -> int:
         torch.cuda.synchronize()
         count_launches(smoke, kernels, "DyYOLO", REQUESTS)
         check_requests(smoke, results, BATCH)
+        inputs["dyyolo"] = requests[0]
         compare_with_plain_stem(requests[0], results[0])
 
     def compare_with_plain_stem(x, result):
@@ -1823,6 +1871,209 @@ def main() -> int:
     smoke.phase("7j data path: prepare_dataloader, train, evaluate, detect",
                 data_path)
 
+    # 7k: export. Artifacts of the four detectors and of the export CLI,
+    # loaded in one fresh process that imports only uavdet_tpu_torch.export
+    import subprocess
+    from uavdet_tpu_torch.evaluate import evaluate_batches, restored_model
+    from uavdet_tpu_torch.export import export_detector, load_detector
+    from uavdet_tpu_torch.data.remote import make_filesystem
+    from uavdet_tpu_torch.models.registry import serving_dtype
+    from uavdet_tpu_torch.scripts import export_detector as export_entry
+    from uavdet_tpu_torch.scripts import \
+        port_reference_checkpoint as port_entry
+    from uavdet_tpu_torch.utils.datatypes import Detections
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    export_dir = os.path.join(workdir, "export")
+    LOADER = (
+        "import json, sys\n"
+        "import torch\n"
+        "from uavdet_tpu_torch.export import load_detector\n"
+        "counts = {}\n"
+        "for job in json.loads(sys.argv[1]):\n"
+        "    with open(job['artifact'], 'rb') as f:\n"
+        "        det = load_detector(f.read())\n"
+        "    kernels = sys.modules['uavdet_tpu_torch.kernels']\n"
+        "    frames = torch.load(job['frames'])\n"
+        "    torch.cuda.synchronize()\n"
+        "    kernels.reset_launch_counts()\n"
+        "    outs = [det(*frames) for _ in range(job['requests'])]\n"
+        "    torch.cuda.synchronize()\n"
+        "    counts[job['name']] = kernels.launch_counts()\n"
+        "    torch.save(outs[0], job['out'])\n"
+        "mods = sorted(sys.modules)\n"
+        "bad = [m for m in mods if m.startswith('uavdet_tpu_torch.models') or"
+        " m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'uavdet_tpu')]\n"
+        "print(json.dumps({'counts': counts, 'bad': bad, 'port': [m for m in"
+        " mods if m.startswith('uavdet_tpu_torch')]}))\n")
+
+    def export_one(name, mdl, hp, size, batch, frames_, dual=False):
+        """Exports ``mdl``'s detector; -> its loader job."""
+        t0 = time.perf_counter()
+        blob = export_detector(mdl, hp, size, batch, dual=dual)
+        seconds = time.perf_counter() - t0
+        path = os.path.join(export_dir, f"{len(jobs)}.pt2")
+        with open(path, "wb") as f:
+            f.write(blob)
+        print(f"export {name}: {len(blob)} bytes, batch {batch}, dual "
+              f"{dual}, {seconds:.1f} s")
+        return dict(name=name, artifact=path, requests=REQUESTS,
+                    frames=save_frames(frames_), out=f"{path}.out")
+
+    def save_frames(frames_):
+        path = os.path.join(export_dir, f"frames_{len(jobs)}.pt")
+        torch.save(tuple(frames_), path)
+        return path
+
+    jobs = []
+
+    def export_path():
+        os.makedirs(export_dir)
+        x16 = inputs["dyyolo"]
+        rgb, ir = (t[:2] for t in inputs["dual"])
+        live = {"exported DyYOLO": detect(x16)}
+        jobs.append(export_one("exported DyYOLO", model, DYYOLO, SIZE,
+                               BATCH, (x16,)))
+        jobs.append(export_one("exported DySOEM_SimFPN", soem_model, DYSOEM,
+                               SOEM_SIZE, 2, (soem_frames[:2],)))
+        live["exported DySOEM_SimFPN"] = soem_detect(soem_frames[:2])
+        jobs.append(export_one("exported DyYOLO dual", model, DYYOLO, SIZE,
+                               2, (rgb, ir), dual=True))
+        live["exported DyYOLO dual"] = dual_detect(rgb, ir)
+        jobs.append(export_one("exported baseline", base_model, BASELINE,
+                               SIZE, 1, (x16[:1],)))
+        live["exported baseline"] = base_detect(x16[:1])
+        with open(jobs[0]["artifact"], "rb") as f:   # timed in phase 8
+            inputs["exported"] = load_detector(f.read())
+
+        # the export CLI over 7j's checkpoint, on its default device
+        here = os.getcwd()
+        os.chdir(os.path.join(workdir, "data_path"))
+        try:
+            cfg = data_config()
+            name = "exported DyYOLO, scripts.export_detector --ckpt last"
+            path = os.path.join(export_dir, "cli.pt2")
+            rc = export_entry.main(cfg, ["--out", path, "--ckpt", "last",
+                                         "--batch", str(BATCH)])
+            smoke.check("scripts.export_detector", rc == 0, f"rc {rc}")
+            restored, _ = restored_model(cfg, "last", dev, bf16)
+            live[name] = make_detector(restored, cfg.model.hparams,
+                                       SIZE)(x16)
+            jobs.append(dict(name=name, artifact=path, requests=REQUESTS,
+                             frames=save_frames((x16,)), out=f"{path}.out"))
+            del restored
+            port_path(cfg)
+        finally:
+            os.chdir(here)
+
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-c", LOADER, json.dumps(jobs)], cwd=repo,
+            env=dict(os.environ, PYTHONPATH=repo), capture_output=True,
+            text=True, timeout=600)
+        print(res.stderr[-3000:], end="")
+        smoke.check("fresh process loads the artifacts", res.returncode == 0,
+                    f"rc {res.returncode}, {len(jobs)} artifacts in "
+                    f"{time.perf_counter() - t0:.1f} s")
+        report = json.loads(res.stdout.strip().splitlines()[-1])
+        smoke.check("fresh process imports no models and no JAX",
+                    not report["bad"], f"imported {report['bad']}; the "
+                    f"port's modules there: {report['port']}")
+        for job in jobs:
+            got = Detections(*torch.load(job["out"]))
+            want = live[job["name"]]
+            err = float((got.scores - want.scores).abs().max())
+            same = (torch.equal(got.valid, want.valid)
+                    and torch.equal(got.scores, want.scores)
+                    and torch.equal(got.boxes, want.boxes))
+            print(f"{job['name']}: max |score diff| {err:.3g} against the "
+                  f"live detector, bitwise equal {same}")
+            compare_detections(smoke, got, want,
+                               name=f"{job['name']} vs the live detector")
+            count_launches(smoke, kernels, job["name"], REQUESTS,
+                           counts=report["counts"][job["name"]])
+
+    def port_path(cfg):
+        """A Lightning-format checkpoint of phase 6's DyYOLO through
+        scripts.port_reference_checkpoint and evaluate.main, against the
+        same weights loaded directly and evaluated by the same loop."""
+        sd = {k: v.float().cpu() for k, v in model.state_dict().items()}
+        ckpt = os.path.join(export_dir, "reference.ckpt")
+        torch.save({"state_dict": sd, "epoch": 1}, ckpt)
+        cfg_p = cfg.to_dict()
+        cfg_p["train"]["checkpoint"]["dir"] = "logs/ported"
+        cfg_p = Config(cfg_p)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = port_entry.main(cfg_p, [ckpt, "logs/ported"])
+        print(buf.getvalue(), end="")
+        smoke.check("scripts.port_reference_checkpoint", rc == 0, f"rc {rc}")
+        val_recs = load_manifest(cfg_p.dataset.val_loader_path)
+        n_eval = -(-len(val_recs) // EVAL_BATCH)
+        kernels.reset_launch_counts()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            evaluate_entry.main(cfg_p, ["--split", "val", "--ckpt", "last",
+                                        "--batch", str(EVAL_BATCH), "--dump",
+                                        "ported.json"])
+        torch.cuda.synchronize()
+        count_launches(smoke, kernels, "evaluate entry point, ported "
+                       "checkpoint", n_eval)
+        text = buf.getvalue()
+        print(text, end="")
+        line = json.loads(text.strip().splitlines()[-1])
+        with open("ported.json") as f:
+            dumped = json.load(f)["images"]
+        direct = seeded_model("DyYOLO", DYYOLO, SEED + 1, dev,
+                              dtype=torch.float32)
+        direct.load_state_dict(sd)
+        dtype = serving_dtype(dev)   # evaluate's
+        direct.to(dtype).eval()
+        ds = cfg_p.dataset
+        pipe = DataPipeline(val_recs, input_size=SIZE, batch_size=EVAL_BATCH,
+                            train=False, shuffle=False, drop_last=False,
+                            fs=make_filesystem(ds.root_dir, False),
+                            workers=DATA_WORKERS, device=dev)
+        want, want_dump = evaluate_batches(
+            make_detector(direct, DYYOLO, SIZE, compute_dtype=dtype), pipe,
+            SIZE, dump=True)
+        keys = sorted(k for k in want if k != "fps")
+        map_err = max(abs(float(line[k]) - round(float(want[k]), 4))
+                      for k in keys)
+        score_err, counts_equal = 0.0, len(dumped) == len(want_dump)
+        moved = unmatched = 0
+        for g, w in zip(dumped, want_dump):
+            gs, ws = np.asarray(g["scores"]), np.asarray(w["scores"])
+            counts_equal &= gs.shape == ws.shape
+            if gs.shape != ws.shape or not len(gs):
+                continue
+            score_err = max(score_err, float(np.abs(gs - ws).max()))
+            gb = np.asarray(g["boxes_xyxy"]).reshape(-1, 4)
+            wb = np.asarray(w["boxes_xyxy"]).reshape(-1, 4)
+            # a box matches its slot, or one of the two slots on either side
+            # that holds an equal score (tests/test_torch_detector.py)
+            near = np.abs(np.arange(len(gs))[:, None]
+                          - np.arange(len(gs))[None]) <= 2
+            same = (np.abs(gb[:, None] - wb[None]).max(-1) <= 1e-4) & (
+                np.abs(gs[:, None] - ws[None]) <= 1e-6) & near
+            unmatched += int((~same.any(1)).sum())
+            moved += int((~same.diagonal()).sum())
+        smoke.check("evaluate over the ported checkpoint vs the weights "
+                    "loaded directly",
+                    line["images"] == want["images"] and map_err <= 1e-6
+                    and counts_equal and score_err <= 1e-6
+                    and unmatched == 0,
+                    f"{line['images']} frames; mAP keys {keys} max |diff| "
+                    f"{map_err:.3g} (limit 1e-6, the line rounds to 4 "
+                    f"places); dump counts equal {counts_equal}, max |score "
+                    f"diff| {score_err:.3g} (1e-6), boxes unmatched "
+                    f"{unmatched} (1e-4 px), {moved} in a neighbouring slot "
+                    f"of an equal score")
+        del direct
+
+    smoke.phase("7k export: artifacts served by a fresh process, the export "
+                "and port CLIs", export_path)
+
     def time_pair(name, kern, plain, lib, iters=ITERS, warmup=WARMUP,
                   plain_iters=ITERS, plain_warmup=WARMUP):
         """Kernel and plain version in turns, so that neither side owns the
@@ -1854,16 +2105,50 @@ def main() -> int:
         ms = cuda_ms(lambda: base_detect(frame))
         print(f"detector BaselineModel @{SIZE} bs=1 uint8 -> Detections: "
               f"{ms:.3f} ms/batch, {1000.0 / ms:.1f} fps {tag}")
+        art = inputs.get("exported")
+        if art is not None:   # 7k passed: the artifact against the live one
+            readings = {"live": [], "artifact": [], "live_host_us": [],
+                        "artifact_host_us": []}
+            for which in ("live", "artifact", "artifact", "live"):
+                fn = ((lambda: detect(frames)) if which == "live"
+                      else (lambda: art(frames)))
+                readings[which].append(cuda_ms(fn))
+                readings[f"{which}_host_us"].append(host_us(fn, 10))
+            print(f"exported DyYOLO @{SIZE} bs={BATCH} uint8, ms/batch: "
+                  f"artifact {readings['artifact']}, live detector "
+                  f"{readings['live']} (in turns); host time to issue one "
+                  f"batch, us: artifact {readings['artifact_host_us']}, live "
+                  f"{readings['live_host_us']} {tag}")
+            print(json.dumps({"export": readings}))
+        x, k1 = inputs["l1"]
+        a1, k2 = inputs["l2"]
+        boxes_s = inputs["nms"]
+        host = {}
+        for name, op, direct in (
+                ("stem_l1", lambda: stem_l1(x, k1),
+                 lambda: _stem_l1_cuda(x, k1)),
+                ("stem_l2", lambda: stem_l2(a1, k2),
+                 lambda: _stem_l2_cuda(a1, k2)),
+                ("nms", lambda: nms_alive(boxes_s, 0.5),
+                 lambda: _nms_alive_cuda(boxes_s, 0.5))):
+            host[name] = {"op": [], "direct": []}
+            for which in ("op", "direct", "direct", "op"):
+                host[name][which].append(host_us(
+                    op if which == "op" else direct))
+        print("host time to issue one call, us, through the registered "
+              "operator (torch.ops.uavdet.*) and the CUDA wrapper called "
+              "directly, in turns: " + "; ".join(
+                  f"{k} {v['op']} / {v['direct']}" for k, v in host.items())
+              + f" {tag}")
+        print(json.dumps({"dispatcher_host_us": host}))
         rgb, ir = inputs["dual"]
         ms = cuda_ms(lambda: dual_detect(rgb, ir))
         print(f"detector DyYOLO dual @{SIZE} {DUAL_BATCH} RGB {RGB_HW} + "
               f"{DUAL_BATCH} IR {IR_HW} uint8 -> Detections: {ms:.3f} "
               f"ms/batch, {2 * DUAL_BATCH * 1000.0 / ms:.1f} fps {tag}")
-        x, k1 = inputs["l1"]
         smoke.stats["stem_l1"].update(time_pair(
             "stem_l1", lambda: stem_l1(x, k1), lambda: stem_l1_plain(x, k1),
             library_stem(x, k1, 1)))
-        a1, k2 = inputs["l2"]
         smoke.stats["stem_l2"].update(time_pair(
             "stem_l2", lambda: stem_l2(a1, k2), lambda: stem_l2_plain(a1, k2),
             library_stem(a1, k2, 2)))
@@ -1894,7 +2179,6 @@ def main() -> int:
         smoke.stats["post_stem_block"]["eager_tail_ms"] = eager
         print(f"  the same two layers of the eager tail (convs, BatchNorm, "
               f"leaky, add as separate passes): {eager:.4f} ms")
-        boxes_s = inputs["nms"]
         smoke.stats["nms"].update(time_pair(
             "nms", lambda: nms_alive(boxes_s, 0.5),
             lambda: nms_alive_plain(boxes_s, 0.5), None))
@@ -2059,6 +2343,8 @@ def main() -> int:
                  ("DySOEM_SimFPN", lambda: soem_detect(soem_frames), 2),
                  ("BaselineModel bs=1", lambda: base_detect(frames[:1]), 3),
                  ("DyYOLO dual", lambda: dual_detect(*inputs["dual"]), 3),
+                 ("DyYOLO exported (7k's artifact)",
+                  lambda: inputs["exported"](frames), 3),
                  ("DyYOLO train step cfg6, 2 microbatches = 1 update",
                   lambda: [inputs["train"][2](inputs["train"][1], b)
                            for b in inputs["train"][3][:2]], 2)):

@@ -180,6 +180,10 @@ def test_port_imports_no_jax():
             "import uavdet_tpu_torch.train, uavdet_tpu_torch.evaluate\n"
             "import uavdet_tpu_torch.scripts.detect\n"
             "import uavdet_tpu_torch.utils.viz\n"
+            "import uavdet_tpu_torch.export, uavdet_tpu_torch.utils.debug\n"
+            "import uavdet_tpu_torch.utils.torch_import\n"
+            "import uavdet_tpu_torch.scripts.export_detector\n"
+            "import uavdet_tpu_torch.scripts.port_reference_checkpoint\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'uavdet_tpu', 'yaml')]\n"
             "assert not bad, bad\n"

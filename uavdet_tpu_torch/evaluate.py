@@ -47,6 +47,31 @@ def evaluate_batches(detect, batches, input_size: int,
     return out, dumped
 
 
+def restored_model(config, ckpt: str | None, device, dtype: torch.dtype):
+    """The params.yaml model as the entry points serve it: seed 0's initial
+    weights in float32 (the training state's), the checkpoint ``ckpt`` of
+    ``config.train.checkpoint`` restored into them where it exists
+    ('best' is the best one ``meta.json`` records), then cast to ``dtype``,
+    in eval mode. -> (model, the name restored or None)."""
+    from .training import CheckpointManager, build_optimizer, init_state
+    from .utils.seeding import seeded_model
+
+    hparams = config.model.hparams
+    model = seeded_model(config.model.name, hparams, 0, device,
+                         dtype=torch.float32)
+    restored = None
+    if ckpt:
+        ck = config.train.checkpoint
+        mgr = CheckpointManager(ck.dir, monitor=ck.monitor, mode=ck.mode)
+        name = mgr.best_path if ckpt == "best" and mgr.best_path else ckpt
+        if mgr.has_checkpoint(name):
+            state = init_state(model, *build_optimizer(model.parameters(),
+                                                       hparams))
+            mgr.restore(state, name)
+            restored = name
+    return model.to(dtype).eval(), restored
+
+
 def main(config=None, argv=None) -> dict:
     """-> the printed metric dict. ``config`` is a ``utils.config.Config``
     (params.yaml is read when it is None)."""
@@ -67,8 +92,6 @@ def main(config=None, argv=None) -> dict:
     from .data.remote import make_filesystem
     from .inference import make_detector
     from .models.registry import serving_dtype
-    from .training import CheckpointManager, build_optimizer, init_state
-    from .utils.seeding import seeded_model
 
     if config is None:
         from .utils.config import load_params
@@ -76,23 +99,12 @@ def main(config=None, argv=None) -> dict:
     hparams = config.model.hparams
     input_size = int(config.dataset.image_size[0])
     device = torch.device(args.device)
-
-    # the training state's float32 weights, restored, then cast for serving
-    model = seeded_model(config.model.name, hparams, 0, device,
-                         dtype=torch.float32)
-    state = init_state(model, *build_optimizer(model.parameters(), hparams))
-    ck = config.train.checkpoint
-    ckpt = CheckpointManager(ck.dir, monitor=ck.monitor, mode=ck.mode)
-    name = args.ckpt
-    if name == "best" and ckpt.best_path:
-        name = ckpt.best_path
-    if ckpt.has_checkpoint(name):
-        ckpt.restore(state, name)
+    dtype = serving_dtype(device)
+    model, name = restored_model(config, args.ckpt, device, dtype)
+    if name:
         print(f"Restored checkpoint '{name}'")
     else:
-        print(f"WARNING: no checkpoint '{name}', evaluating random init")
-    dtype = serving_dtype(device)
-    model.to(dtype).eval()
+        print(f"WARNING: no checkpoint '{args.ckpt}', evaluating random init")
 
     ds = config.dataset
     records = load_manifest(ds.val_loader_path if args.split == "val"

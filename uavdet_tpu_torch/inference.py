@@ -23,7 +23,12 @@ at their native sizes, brings both to the detector's grid in
 the preprocessed bf16 frames go through the stem kernels.
 
 A model whose parameters live on a CUDA device runs the kernels; on the CPU
-the same code runs their plain PyTorch versions.
+the same code runs their plain PyTorch versions. ``Detector`` is the same
+program as one ``nn.Module`` holding the model, which ``export.py`` traces.
+
+``decode_all_heads`` and ``decode_topk_heads`` (with ``_topk_wide``) are the
+JAX package's other two decodes, kept with its contracts; no detector path
+calls them (the detector keeps ``decode_topk_global``).
 """
 
 from functools import lru_cache
@@ -31,7 +36,10 @@ from typing import Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch import nn
 
+from .ops.decode import decode_predictions
 from .ops.nms import batched_nms, nms_alive
 from .ops.resize import bilinear_resize
 from .ops.stem import detector_stem_fast_path
@@ -81,6 +89,127 @@ def _head_tables(device: torch.device, heads: tuple, anchors: tuple,
                 anchors=t(anchors, torch.float32))
 
 
+def _candidate_boxes(sel, gx, gy, scale, aw, ah) -> torch.Tensor:
+    """Box logits (B, k, 4) of candidates in grid cells (gx, gy) of a head
+    of stride ``scale`` with anchors (aw, ah) in pixels -> absolute-pixel
+    xyxy f32 (reference model/_base.py:214-241)."""
+    s = torch.sigmoid(sel.float())
+    cx = (s[..., 0] * 2.0 - 0.5 + gx) * scale
+    cy = (s[..., 1] * 2.0 - 0.5 + gy) * scale
+    w_ = (s[..., 2] * 2.0) ** 2 * aw
+    h_ = (s[..., 3] * 2.0) ** 2 * ah
+    return torch.stack([cx - w_ / 2, cy - h_ / 2,
+                        cx + w_ / 2, cy + h_ / 2], dim=-1)
+
+
+def decode_all_heads(outs, anchors, head_scales: Sequence[int],
+                     bbox_loss_fn: str = "mse"):
+    """Every candidate of every head decoded to absolute-pixel xyxy.
+
+    -> boxes (B, N, 4) f32, scores (B, N) f32 with N = sum over heads of
+    A * H * W, head-major. Both ``bbox_loss_fn`` modes decode to the same
+    pixels: 'mse' adds the grid and anchor terms that 'ciou''s
+    ``decode_predictions`` already holds.
+    """
+    all_boxes, all_scores = [], []
+    for h, out in enumerate(outs):
+        scale = head_scales[h]
+        p = out.bbox.float()
+        sa = torch.tensor(np.asarray(anchors[h], np.float32),
+                          device=p.device) / scale       # grid units
+        dec = decode_predictions(p, sa, bbox_loss_fn)    # cxcywh
+        if bbox_loss_fn != "ciou":
+            hh, ww = p.shape[-3], p.shape[-2]
+            gy, gx = torch.meshgrid(
+                torch.arange(hh, dtype=torch.float32, device=p.device),
+                torch.arange(ww, dtype=torch.float32, device=p.device),
+                indexing="ij")
+            dec = torch.stack([dec[..., 0] + gx, dec[..., 1] + gy,
+                               dec[..., 2] * sa[:, None, None, 0],
+                               dec[..., 3] * sa[:, None, None, 1]], dim=-1)
+        cx, cy, w_, h_ = (dec * scale).unbind(-1)        # pixels
+        boxes = torch.stack([cx - w_ / 2, cy - h_ / 2,
+                             cx + w_ / 2, cy + h_ / 2], dim=-1)
+        b = boxes.shape[0]
+        all_boxes.append(boxes.reshape(b, -1, 4))
+        all_scores.append(torch.sigmoid(out.obj.float()[..., 0])
+                          .reshape(b, -1))
+    return torch.cat(all_boxes, dim=1), torch.cat(all_scores, dim=1)
+
+
+_TOPK_CHUNK = 16384
+
+
+def _sorted_top(x: torch.Tensor, k: int):
+    v, i = torch.sort(x, dim=-1, descending=True, stable=True)
+    return v[..., :k], i[..., :k]
+
+
+def _topk_wide(logits: torch.Tensor, k: int):
+    """The first k of one stable descending sort of ``logits`` (B, n) ->
+    (values, indices), taken in two stages where n is wide.
+
+    The chunking was a workaround for the TPU's ``top_k``, slow at
+    DySOEM-1280 widths (n about 1.6 M); on the card this stays a plain
+    function that no detector path calls. Past 4 chunks of ``_TOPK_CHUNK``
+    (with k at most one chunk) each chunk keeps its first k by a stable
+    sort, and a stable sort of the survivors, laid out in chunk order,
+    picks the k. Values and indices, ties included, are then exactly the
+    single stable sort's: an element among the global first k has fewer
+    than k elements before it in that order, so fewer in its own chunk;
+    and among equal values the survivors stand in ascending index order,
+    which the second stable sort keeps. (The JAX function found its tie
+    order only empirically and falls back to one sort beyond the shapes it
+    tried; here the order is exact at any width.)
+    """
+    b, n = logits.shape
+    if n < 4 * _TOPK_CHUNK or k > _TOPK_CHUNK:
+        return _sorted_top(logits, k)
+    m = -(-n // _TOPK_CHUNK)
+    xp = F.pad(logits, (0, m * _TOPK_CHUNK - n), value=-torch.inf)
+    v1, i1 = _sorted_top(xp.reshape(b, m, _TOPK_CHUNK), k)
+    base = torch.arange(m, device=logits.device)[None, :, None] * _TOPK_CHUNK
+    g1 = (base + i1).reshape(b, m * k)
+    v2, i2 = _sorted_top(v1.reshape(b, m * k), k)
+    return v2, torch.gather(g1, 1, i2)
+
+
+def decode_topk_heads(outs, anchors, head_scales: Sequence[int],
+                      pre_nms_topk: int, return_logits: bool = False):
+    """Per head, the ``pre_nms_topk`` candidates of the highest objectness
+    logit (``_topk_wide``), decoded: the union holds the global top-k.
+
+    -> boxes (B, sum_h k_h, 4) xyxy f32 and scores (B, sum_h k_h) f32, head
+    by head; with ``return_logits`` also the kept logits in their native
+    dtype, the key a second top-k must sort on to agree with
+    ``decode_topk_global`` (the f32 sigmoid saturates to 1.0 above a logit
+    of about 16.6).
+    """
+    all_b, all_s, all_l = [], [], []
+    for h, out in enumerate(outs):
+        scale = head_scales[h]
+        b, a, hh, ww, _ = out.obj.shape
+        n = a * hh * ww
+        k = min(pre_nms_topk, n)
+        logits = out.obj.reshape(b, n)
+        _, top_i = _topk_wide(logits, k)
+        top_l = torch.gather(logits, 1, top_i)
+        sel = torch.gather(out.bbox.reshape(b, n, 4), 1,
+                           top_i[..., None].expand(b, k, 4))
+        rem = top_i % (hh * ww)
+        ai = top_i // (hh * ww)
+        anc = torch.tensor(np.asarray(anchors[h], np.float32),
+                           device=logits.device)          # (A, 2) pixels
+        all_b.append(_candidate_boxes(sel, (rem % ww).float(),
+                                      (rem // ww).float(), scale,
+                                      anc[ai, 0], anc[ai, 1]))
+        all_s.append(torch.sigmoid(top_l.float()))
+        all_l.append(top_l)
+    out3 = (torch.cat(all_b, dim=1), torch.cat(all_s, dim=1),
+            torch.cat(all_l, dim=1))
+    return out3 if return_logits else out3[:2]
+
+
 def decode_topk_global(outs, anchors, head_scales: Sequence[int],
                        pre_nms_topk: int):
     """One top-k over the concatenated objectness logits of all heads, then
@@ -120,14 +249,8 @@ def decode_topk_global(outs, anchors, head_scales: Sequence[int],
     ah = tab["anchors"][hid * n_a + ai, 1]
 
     sel = torch.gather(bbox, 1, top_i[..., None].expand(b, k, 4))
-    s = torch.sigmoid(sel.float())
-    cx = (s[..., 0] * 2.0 - 0.5 + gx) * scale
-    cy = (s[..., 1] * 2.0 - 0.5 + gy) * scale
-    w_ = (s[..., 2] * 2.0) ** 2 * aw
-    h_ = (s[..., 3] * 2.0) ** 2 * ah
-    boxes = torch.stack([cx - w_ / 2, cy - h_ / 2,
-                         cx + w_ / 2, cy + h_ / 2], dim=-1)
-    return boxes, torch.sigmoid(top_l.float())
+    return (_candidate_boxes(sel, gx, gy, scale, aw, ah),
+            torch.sigmoid(top_l.float()))
 
 
 def select_detections(boxes: torch.Tensor, scores: torch.Tensor,
@@ -144,6 +267,51 @@ def select_detections(boxes: torch.Tensor, scores: torch.Tensor,
     out_s = torch.gather(scores, 1, safe)
     return Detections(boxes=torch.where(valid[..., None], out_b, 0.0),
                       scores=torch.where(valid, out_s, 0.0), valid=valid)
+
+
+class Detector(nn.Module):
+    """The detector as one module holding ``model``: ``forward(images)``, or
+    with ``dual`` ``forward(rgb, ir)``, takes frames on the model's device
+    and returns (boxes, scores, valid) as ``Detections`` holds them.
+    ``make_detector`` calls it; ``export.export_detector`` traces it, so
+    the model's weights travel in the artifact."""
+
+    def __init__(self, model, hparams, input_size: int,
+                 score_threshold: float = 0.001, nms_iou: float = 0.5,
+                 pre_nms_topk: int = 512, max_det: int = 300,
+                 compute_dtype: torch.dtype = torch.bfloat16,
+                 dual: bool = False):
+        super().__init__()
+        self.model = model
+        self.anchors = np.asarray(hparams.anchors, np.float32)
+        self.input_size = input_size
+        self.score_threshold = score_threshold
+        self.nms_iou = nms_iou
+        self.pre_nms_topk = pre_nms_topk
+        self.max_det = max_det
+        self.compute_dtype = compute_dtype
+        self.dual = dual
+        self.stem = detector_stem_fast_path(model)
+
+    def body(self, x) -> Detections:
+        """x: frames at the detector's grid, raw uint8 (stem kernels only)
+        or preprocessed."""
+        stem = self.stem
+        outs = stem.tail(stem.stem(x)) if stem is not None else self.model(x)
+        scales = [self.input_size // o.obj.shape[2] for o in outs]
+        boxes, scores = decode_topk_global(outs, self.anchors, scales,
+                                           self.pre_nms_topk)
+        return select_detections(boxes, scores, self.score_threshold,
+                                 self.nms_iou, self.max_det)
+
+    def forward(self, x: torch.Tensor, ir: torch.Tensor | None = None):
+        size, dtype = self.input_size, self.compute_dtype
+        if self.dual:
+            x = preprocess_dual(x, ir, size, dtype)
+        elif not (self.stem is not None and x.dtype == torch.uint8
+                  and tuple(x.shape[1:3]) == (size, size)):
+            x = preprocess(x, size, dtype)
+        return tuple(self.body(x))
 
 
 def make_detector(model, hparams, input_size: int,
@@ -165,33 +333,18 @@ def make_detector(model, hparams, input_size: int,
     model, frames already at ``input_size`` are only normalized: the resize
     of ``preprocess`` does nothing at the size it is asked for.
     """
-    anchors = np.asarray(hparams.anchors, np.float32)
-    stem = detector_stem_fast_path(model)
-
-    def body(x) -> Detections:
-        """x: frames at the detector's grid, raw uint8 (stem kernels only)
-        or preprocessed."""
-        outs = stem.tail(stem.stem(x)) if stem is not None else model(x)
-        scales = [input_size // o.obj.shape[2] for o in outs]
-        boxes, scores = decode_topk_global(outs, anchors, scales,
-                                           pre_nms_topk)
-        return select_detections(boxes, scores, score_threshold, nms_iou,
-                                 max_det)
+    det = Detector(model, hparams, input_size, score_threshold, nms_iou,
+                   pre_nms_topk, max_det, compute_dtype, dual)
 
     @torch.inference_mode()
     def detect(images) -> Detections:
         device = next(model.parameters()).device
-        x = torch.as_tensor(images, device=device)
-        if not (stem is not None and x.dtype == torch.uint8
-                and tuple(x.shape[1:3]) == (input_size, input_size)):
-            x = preprocess(x, input_size, compute_dtype)
-        return body(x)
+        return Detections(*det(torch.as_tensor(images, device=device)))
 
     @torch.inference_mode()
     def detect_dual(rgb, ir) -> Detections:
         device = next(model.parameters()).device
-        return body(preprocess_dual(torch.as_tensor(rgb, device=device),
-                                    torch.as_tensor(ir, device=device),
-                                    input_size, compute_dtype))
+        return Detections(*det(torch.as_tensor(rgb, device=device),
+                               torch.as_tensor(ir, device=device)))
 
     return detect_dual if dual else detect

@@ -9,7 +9,10 @@ edited source is rebuilt and an unchanged one is loaded as it is.
 
 Each kernel is a :class:`CudaKernel`; its ``launches`` counts the launches
 that went through it, so a run can show that the main path used the kernel.
-A launch that CUDA refuses raises: there is no fallback.
+A launch that CUDA refuses raises: there is no fallback. The wrappers in
+``ops/`` reach the kernels through operators registered with
+``torch.library`` (``torch.ops.uavdet.*``), whose real implementations
+launch them: the counts advance when an exported program runs too.
 """
 
 import ctypes
@@ -165,6 +168,13 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for k in ALL.values():
         k.launches = 0
+
+
+def check_device(t, what: str) -> None:
+    """Raises for a tensor on neither a CUDA device nor the CPU: the kernels
+    run on the card and their plain versions on the CPU, nothing else."""
+    if t.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"no {what} for device {t.device}")
 
 
 def stream_of(t) -> int:

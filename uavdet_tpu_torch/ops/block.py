@@ -22,8 +22,14 @@ leaky(bias).
 plain PyTorch version, a CUDA tensor launches kernel G
 (``csrc/post_stem_block.cu``), anything else raises. As in the JAX package,
 no detector calls it: the models' tails keep their own layers.
+``post_stem_block`` calls the registered operator
+``torch.ops.uavdet.post_stem_block``, whose implementation makes that choice
+and whose fake implementation gives the output's shape, so that
+``torch.export`` traces through it (inference only: no autograd); a schema
+takes no NamedTuple, so a ``PackedConv`` goes in as its image and bias.
 ``post_stem_block_stage`` launches the kernel cut off after one stage of its
-ladder (see ``uavdet_tpu_torch/scripts/block_ablate.py``).
+ladder (see ``uavdet_tpu_torch/scripts/block_ablate.py``), a measuring aid
+that stays a plain function.
 
 The kernel reads each weight matrix as an image of its shared memory
 (``pack_block_weights``): a caller that packs once launches kernel G and
@@ -31,7 +37,7 @@ nothing else per call; one that passes the (O, K + 1) matrices has them
 packed at every call.
 """
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -242,9 +248,35 @@ def post_stem_block_stage(x: torch.Tensor, w1: torch.Tensor, k2: torch.Tensor,
     raise ValueError(f"no block kernel for device {x.device}")
 
 
+@torch.library.custom_op("uavdet::post_stem_block", mutates_args=())
+def _post_stem_block_op(x: torch.Tensor, w1: torch.Tensor, k2: torch.Tensor,
+                        k3: torch.Tensor, images: list[Optional[torch.Tensor]],
+                        biases: list[Optional[torch.Tensor]]) -> torch.Tensor:
+    """w1, k2, k3: the (O, K + 1) matrices; ``images[i]`` and ``biases[i]``
+    the i-th conv's ``PackedConv``, or None where it was given unpacked."""
+    kernels.check_device(x, "block kernel")
+    if not x.is_cuda:
+        return post_stem_block_plain(x, w1, k2, k3)
+    ws = [t if image is None else PackedConv(image, bias, t)
+          for t, image, bias in zip((w1, k2, k3), images, biases)]
+    return _post_stem_block_cuda(x, *ws, BLOCK_STAGES.index("full"))
+
+
+@_post_stem_block_op.register_fake
+def _(x, w1, k2, k3, images, biases):
+    kernels.check_device(x, "block kernel")
+    b, h, w, _ = x.shape
+    return x.new_empty((b, (h + 1) // 2, (w + 1) // 2, 128), dtype=_BF16)
+
+
+@torch.no_grad()   # inference only: the kernel has no backward
 def post_stem_block(x: torch.Tensor, w1: torch.Tensor, k2: torch.Tensor,
                     k3: torch.Tensor) -> torch.Tensor:
     """Kernel G: x (B, H, W, 64) bf16, w1 (32, 65), k2 (64, 289), k3
     (128, 577), each also as its ``PackedConv`` -> (B, ceil(H/2),
     ceil(W/2), 128) bf16 NHWC."""
-    return post_stem_block_stage(x, w1, k2, k3, "full")
+    ws = (w1, k2, k3)
+    packed = [isinstance(t, PackedConv) for t in ws]
+    return torch.ops.uavdet.post_stem_block(
+        x, *map(_aug, ws), [t.image if p else None for t, p in zip(ws, packed)],
+        [t.bias if p else None for t, p in zip(ws, packed)])

@@ -24,7 +24,11 @@ x only. Two options of the same kernel:
 ``dyconv`` dispatches on the device of ``x``: a CPU tensor takes the plain
 PyTorch version ``dyconv_plain``, a CUDA tensor launches the kernel
 (``csrc/dyconv.cu``: a wgmma implicit GEMM on tiles of 256 pixels x 128
-channels), anything else raises.
+channels), anything else raises. It calls the registered operator
+``torch.ops.uavdet.dyconv(x, k, mul, add, fold_out, emit_gap) -> (out,
+sums)`` (``sums`` empty without ``emit_gap``), whose implementation makes
+that choice and whose fake implementation gives the outputs' shapes, so that
+``torch.export`` traces through it (inference only: no autograd).
 """
 
 import torch
@@ -164,13 +168,36 @@ def _dyconv_cuda(x, k, mul, add, fold_out, emit_gap):
     return (out, partial.sum(dim=1)) if emit_gap else out
 
 
+@torch.library.custom_op("uavdet::dyconv", mutates_args=())
+def _dyconv_op(x: torch.Tensor, k: torch.Tensor, mul: torch.Tensor,
+               add: torch.Tensor, fold_out: bool,
+               emit_gap: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    kernels.check_device(x, "dyconv kernel")
+    fn = _dyconv_cuda if x.is_cuda else dyconv_plain
+    got = fn(x, k, mul, add, fold_out, emit_gap)
+    return got if emit_gap else (got, _no_sums(x))
+
+
+def _no_sums(x):
+    return x.new_empty((0,), dtype=torch.float32)
+
+
+@_dyconv_op.register_fake
+def _(x, k, mul, add, fold_out, emit_gap):
+    kernels.check_device(x, "dyconv kernel")
+    b, h, w, _, co = _check(x, k, mul, add, fold_out)
+    shape = (b, h // 2, w, 2 * co) if fold_out else (b, h, w, co)
+    out = x.new_empty(shape, dtype=_BF16)
+    if not emit_gap:
+        return out, _no_sums(x)
+    return out, x.new_empty((b, 2, 2, co), dtype=torch.float32)
+
+
 def dyconv(x: torch.Tensor, k: torch.Tensor, mul: torch.Tensor,
            add: torch.Tensor, fold_out: bool = False, emit_gap: bool = False):
     """Kernel D: SiLU(conv3x3 SAME(x[b], k[b]) * mul + add[b]) -> bf16 NHWC
     (B, H, W, Co), or (B, H/2, W, 2 Co) with ``fold_out``; with ``emit_gap``
     a pair (out, sums (B, 2, 2, Co) f32 [row parity, column parity, c])."""
-    if x.is_cuda:
-        return _dyconv_cuda(x, k, mul, add, fold_out, emit_gap)
-    if x.device.type == "cpu":
-        return dyconv_plain(x, k, mul, add, fold_out, emit_gap)
-    raise ValueError(f"no dyconv kernel for device {x.device}")
+    out, sums = torch.ops.uavdet.dyconv(x, k, mul, add, bool(fold_out),
+                                        bool(emit_gap))
+    return (out, sums) if emit_gap else out

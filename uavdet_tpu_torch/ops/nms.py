@@ -11,7 +11,10 @@ plain PyTorch version ``nms_alive_plain``, a CUDA tensor launches the kernel,
 anything else raises. Up to ``MAX_BOXES`` boxes per image the kernel keeps
 its mask in a cluster's shared memory; above, it keeps the mask rows in a
 scratch tensor in device memory (N * ceil(N / 64) * 8 bytes per image, 2 MB
-at N = 4096) and takes two launches, counted as one.
+at N = 4096) and takes two launches, counted as one. ``nms_alive`` calls the
+registered operator ``torch.ops.uavdet.nms_alive``, whose implementation
+makes that choice and whose fake implementation gives the mask's shape, so
+that ``torch.export`` traces through it (inference only: no autograd).
 """
 
 import numpy as np
@@ -166,14 +169,25 @@ def nms_empty_launch(batch: int) -> None:
     kernels.NMS_EMPTY(batch, torch.cuda.current_stream().cuda_stream)
 
 
+@torch.library.custom_op("uavdet::nms_alive", mutates_args=())
+def _nms_alive_op(boxes_sorted: torch.Tensor,
+                  iou_threshold: float) -> torch.Tensor:
+    kernels.check_device(boxes_sorted, "NMS")
+    return (_nms_alive_cuda(boxes_sorted, iou_threshold)
+            if boxes_sorted.is_cuda
+            else nms_alive_plain(boxes_sorted, iou_threshold))
+
+
+@_nms_alive_op.register_fake
+def _(boxes_sorted, iou_threshold):
+    kernels.check_device(boxes_sorted, "NMS")
+    return boxes_sorted.new_empty(boxes_sorted.shape[:2], dtype=torch.bool)
+
+
 def nms_alive(boxes_sorted: torch.Tensor,
               iou_threshold: float = 0.5) -> torch.Tensor:
     """Survivor mask (B, N) bool of score-sorted boxes (B, N, 4)."""
-    if boxes_sorted.is_cuda:
-        return _nms_alive_cuda(boxes_sorted, iou_threshold)
-    if boxes_sorted.device.type == "cpu":
-        return nms_alive_plain(boxes_sorted, iou_threshold)
-    raise ValueError(f"no NMS for device {boxes_sorted.device}")
+    return torch.ops.uavdet.nms_alive(boxes_sorted, float(iou_threshold))
 
 
 def batched_nms(boxes: torch.Tensor, scores: torch.Tensor,

@@ -29,6 +29,13 @@ apply SiLU in f32 and store bf16, as the TPU kernels do. ``stem_l1`` / ``stem_l2
 their input: a CPU tensor takes the plain PyTorch version (``*_plain``), a
 CUDA tensor launches the kernel (``csrc/stem_l1.cu``, ``csrc/stem_l2.cu``),
 anything else raises.
+
+``stem_l1``, ``stem_l2`` and ``stem_fused`` call the registered operators
+``torch.ops.uavdet.stem_l1`` / ``stem_l2`` / ``stem_fused``, whose
+implementations make that choice; their fake implementations give only the
+outputs' shapes and dtypes, so that ``torch.export`` traces through them.
+Inference only: no autograd formula is registered, and a backward through
+one raises. ``stem_l2_stage`` is a measuring aid and stays a plain function.
 """
 
 from typing import NamedTuple
@@ -219,22 +226,60 @@ def _stem_fused_cuda(x: torch.Tensor, k1: torch.Tensor,
     return out
 
 
+@torch.library.custom_op("uavdet::stem_l1", mutates_args=())
+def _stem_l1_op(x: torch.Tensor,
+                k1: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    kernels.check_device(x, "stem kernel")
+    return _stem_l1_cuda(x, k1) if x.is_cuda else stem_l1_plain(x, k1)
+
+
+@_stem_l1_op.register_fake
+def _(x, k1):
+    kernels.check_device(x, "stem kernel")
+    b, h, w, _ = x.shape
+    return (x.new_empty((b, h, w, 32), dtype=_BF16),
+            x.new_empty((b, 32), dtype=torch.float32))
+
+
+def _l2_out(a1: torch.Tensor) -> torch.Tensor:
+    b, h, w, _ = a1.shape
+    return a1.new_empty((b, (h + 1) // 2, (w + 1) // 2, 64), dtype=_BF16)
+
+
+@torch.library.custom_op("uavdet::stem_l2", mutates_args=())
+def _stem_l2_op(a1: torch.Tensor, k2: torch.Tensor) -> torch.Tensor:
+    kernels.check_device(a1, "stem kernel")
+    return _stem_l2_cuda(a1, k2) if a1.is_cuda else stem_l2_plain(a1, k2)
+
+
+@_stem_l2_op.register_fake
+def _(a1, k2):
+    kernels.check_device(a1, "stem kernel")
+    return _l2_out(a1)
+
+
+@torch.library.custom_op("uavdet::stem_fused", mutates_args=())
+def _stem_fused_op(x: torch.Tensor, k1: torch.Tensor,
+                   k2: torch.Tensor) -> torch.Tensor:
+    kernels.check_device(x, "stem kernel")
+    return (_stem_fused_cuda(x, k1, k2) if x.is_cuda
+            else stem_fused_plain(x, k1, k2))
+
+
+@_stem_fused_op.register_fake
+def _(x, k1, k2):
+    kernels.check_device(x, "stem kernel")
+    return _l2_out(x)
+
+
 def stem_l1(x: torch.Tensor, k1: torch.Tensor):
     """Kernel A: (a1 (B, H, W, 32) bf16, channel sums of a1 (B, 32) f32)."""
-    if x.is_cuda:
-        return _stem_l1_cuda(x, k1)
-    if x.device.type == "cpu":
-        return stem_l1_plain(x, k1)
-    raise ValueError(f"no stem kernel for device {x.device}")
+    return torch.ops.uavdet.stem_l1(x, k1)
 
 
 def stem_l2(a1: torch.Tensor, k2: torch.Tensor) -> torch.Tensor:
     """Kernel B: (B, ceil(H/2), ceil(W/2), 64) bf16 NHWC."""
-    if a1.is_cuda:
-        return _stem_l2_cuda(a1, k2)
-    if a1.device.type == "cpu":
-        return stem_l2_plain(a1, k2)
-    raise ValueError(f"no stem kernel for device {a1.device}")
+    return torch.ops.uavdet.stem_l2(a1, k2)
 
 
 def stem_l2_stage(a1: torch.Tensor, k2: torch.Tensor,
@@ -261,11 +306,7 @@ def stem_fused(x: torch.Tensor, k1: torch.Tensor,
     caller has folded /255 into K1, as ``stem_l1_weights`` does) or float
     (rounded to bf16); K1 (B, 32, 28), K2 (B, 64, 289) from ``mix_and_fold``
     -> (B, ceil(H/2), ceil(W/2), 64) bf16 NHWC."""
-    if x.is_cuda:
-        return _stem_fused_cuda(x, k1, k2)
-    if x.device.type == "cpu":
-        return stem_fused_plain(x, k1, k2)
-    raise ValueError(f"no stem kernel for device {x.device}")
+    return torch.ops.uavdet.stem_fused(x, k1, k2)
 
 
 @torch.no_grad()   # inference only: the kernels have no backward

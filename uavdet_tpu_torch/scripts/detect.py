@@ -58,9 +58,9 @@ def main(config=None, argv=None) -> int:
 
     from ..data.frames import decode, resize_frames
     from ..data.remote import read_bytes
+    from ..evaluate import restored_model
     from ..inference import make_detector
     from ..models.registry import serving_dtype
-    from ..utils.seeding import seeded_model
 
     if config is None:
         from ..utils.config import load_params
@@ -68,17 +68,12 @@ def main(config=None, argv=None) -> int:
     hparams = config.model.hparams
     input_size = int(config.dataset.image_size[0])
     device = torch.device(args.device)
-    model = seeded_model(config.model.name, hparams, 0, device,
-                         dtype=torch.float32)
-    if args.ckpt:
-        from ..training import (CheckpointManager, build_optimizer,
-                                init_state)
-        ck = config.train.checkpoint
-        mgr = CheckpointManager(ck.dir, monitor=ck.monitor, mode=ck.mode)
-        mgr.restore(init_state(model, *build_optimizer(model.parameters(),
-                                                       hparams)), args.ckpt)
     dtype = serving_dtype(device)
-    model.to(dtype).eval()
+    model, name = restored_model(config, args.ckpt, device, dtype)
+    if args.ckpt and name is None:
+        print(f"no checkpoint {args.ckpt!r} in {config.train.checkpoint.dir}",
+              file=sys.stderr)
+        return 1
     detect = make_detector(model, hparams, input_size,
                            score_threshold=args.score, compute_dtype=dtype)
 
