@@ -134,6 +134,26 @@ nor PyYAML. The phases, in order:
      ``scripts.port_reference_checkpoint`` and ``evaluate.main --ckpt
      last`` (A, B and C once per batch), its mAP and dump against the same
      weights loaded directly;
+  7l. RTMUAVDet at cfg4's shape (``bench.py``: 640 px, batch 8): full width
+     (1,918,742 parameters), bf16, seeded weights, 3 requests of uint8
+     frames through ``inference.make_rtm_detector``; the NMS kernel once
+     per request and no other kernel; the detections against the same
+     detector with the plain NMS;
+  7m. its training at cfg5's shape: 4 Adam steps (lr 1e-4) of
+     ``training.rtm.make_rtm_train_step`` at 640 px, batch 8, bf16
+     autocast over float32 parameters: losses finite, parameters moved,
+     every conv output bf16, no kernel launched; then 3 float32 steps of
+     the 64 px model (dropout off) on the card against the CPU, TF32 off;
+  7n. the mosaic path: ``ops.resize.lanczos4_resize`` on the card against
+     the CPU, bitwise (1080x1920 and 512x640 into 320x320, and an upscale),
+     and its time on a mosaic batch's 32 sources; in 7j's working
+     directory, ``DataPipeline(mosaic=True)`` over 7j's tree on the card
+     against the same pipeline on the CPU over the same decoded frames
+     (membership, masks and boxes bitwise, pixels within one unit; no
+     kernel launched), its frames per second beside the plain train
+     pipeline's, in turns; ``train.main`` with ``dataset.mosaic: true`` at
+     cfg6's shape on its default device (A, B and C once per validation
+     batch);
   8. times, with CUDA events, medians after warm-up: the four detectors per
      batch, and each kernel at its main-path shapes beside its plain
      version and beside one bf16 ``F.conv2d(groups=B)`` call that computes
@@ -154,9 +174,13 @@ nor PyYAML. The phases, in order:
      ``Trainer.validate`` per batch and the peak device memory of training;
      7k's DyYOLO artifact against the live detector, in turns; the host's
      time to issue one call of kernels A, B and C through their registered
-     operators and through the CUDA wrappers called directly;
-  9. a ``torch.profiler`` window of each detector, of 7k's DyYOLO artifact
-     and of two cfg6 train microbatches: device time by kernel.
+     operators and through the CUDA wrappers called directly; RTMUAVDet's
+     detector per batch of 8, the NMS kernel on its candidates (8, 512)
+     beside its plain version and bound, and a cfg5 step (an ``{"rtm":
+     ...}`` JSON line, with 7n's readings);
+  9. a ``torch.profiler`` window of each detector, of 7k's DyYOLO artifact,
+     of two cfg6 train microbatches, of the RTMUAVDet detector and of two
+     cfg5 steps: device time by kernel.
 
 No detector path may launch kernel E, F or G: their paths are the op and
 the two command-line entries, as in the JAX package.
@@ -254,6 +278,18 @@ LOGIT_TOL = 0.1
 # the same operations summed in another order, errors of a few f32 ulps
 # carried through the network
 F32_LOGIT_TOL = 1e-3
+# RTMUAVDet (7l, 7m): cfg4's serving shape and cfg5's training shape
+# (bench.py:20-21, 122-233): 640 px, batch 8; full width, 1,918,742
+# parameters (the flax init's count, tests/test_torch_rtm.py holds the
+# port's equal to it)
+RTM_BATCH, RTM_SIZE, RTM_PARAMS = 8, 640, 1_918_742
+RTM_TRAIN_STEPS = 4
+RTM_PARITY_SIZE, RTM_PARITY_BATCH, RTM_PARITY_STEPS = 64, 2, 3
+# the mosaic path (7n): the Lanczos-4 resize's card-vs-CPU cases, (source,
+# quadrant) sizes: the cameras' frames into a 640 px canvas's quadrant, and
+# an upscale
+LANCZOS_CASES = (((1080, 1920), (320, 320)), ((512, 640), (320, 320)),
+                 ((150, 200), (320, 320)))
 
 KERNELS = {
     "stem_l1": ("uavdet_tpu_torch/csrc/stem_l1.cu",
@@ -303,6 +339,15 @@ EXPECTED_LAUNCHES = {
     # per batch of evaluate over a ported reference checkpoint (7k)
     "evaluate entry point, ported checkpoint": {"stem_l1": 1, "stem_l2": 1,
                                                 "nms": 1},
+    # per request of make_rtm_detector (7l), per step of cfg5 (7m)
+    "RTMUAVDet": {"nms": 1},
+    "RTMUAVDet train step": {},
+    "RTMUAVDet float32 train step": {},
+    # per batch of the mosaic pipeline, per validation batch of train.main
+    # with dataset.mosaic on (7n)
+    "mosaic pipeline": {},
+    "train entry point DyYOLO, mosaic": {"stem_l1": 1, "stem_l2": 1,
+                                         "nms": 1},
     # one run of a ladder's entry point: every stage, warm-up included
     "l2_ablate": {"stem_l2_stage": 5 * (LADDER_ITERS + 3)},
     "block_ablate": {"post_stem_block": 4 * (LADDER_ITERS + 3)},
@@ -630,6 +675,325 @@ def conv_dtype_hooks(model):
             handles.append(m.register_forward_hook(
                 lambda mod, args, out: seen.append(out.dtype)))
     return seen, handles
+
+
+class RTMAndMosaic:
+    """Phases 7l (RTMUAVDet serving at cfg4's shape), 7m (its training at
+    cfg5's), 7n (the mosaic path), their timing in phase 8 and their
+    profiles in phase 9."""
+
+    def __init__(self, smoke, dev, gen, tag):
+        self.smoke, self.dev, self.gen, self.tag = smoke, dev, gen, tag
+        self.inputs = {}
+
+    def frames(self, batch, hw):
+        import torch
+        return torch.randint(0, 256, (batch, *hw, 3), dtype=torch.uint8,
+                             device=self.dev, generator=self.gen)
+
+    def targets(self, batch, size):
+        """One xyxy pixel box per frame, (B, 1, 4) float32."""
+        import torch
+        wh = size * (0.06 + 0.25 * torch.rand(
+            (batch, 1, 2), generator=self.gen, device=self.dev))
+        lo = torch.rand((batch, 1, 2), generator=self.gen,
+                        device=self.dev) * (size - wh)
+        return torch.cat([lo, lo + wh], dim=-1)
+
+    def serving(self):
+        """7l: full-width RTMUAVDet, bf16, seeded weights, 3 requests of
+        uint8 frames through make_rtm_detector; NMS once per request, no
+        other kernel; against the plain path (nms_alive_plain)."""
+        import torch
+        from uavdet_tpu_torch import kernels
+        from uavdet_tpu_torch.inference import (make_rtm_detector,
+                                                preprocess, rtm_candidates)
+        from uavdet_tpu_torch.inference import _topk_wide
+        from uavdet_tpu_torch.models.rtm_uav_det import rtm_det_scales
+        from uavdet_tpu_torch.ops.nms import nms_alive_plain
+        from uavdet_tpu_torch.utils.seeding import seeded_rtm_model
+        smoke, dev = self.smoke, self.dev
+        t0 = time.perf_counter()
+        model = seeded_rtm_model(SEED, RTM_SIZE, dev)
+        n_params = sum(p.numel() for p in model.parameters())
+        print(f"model: RTMUAVDet full width, {n_params} parameters, "
+              f"{model.dtype}, seed {SEED}, built in "
+              f"{time.perf_counter() - t0:.1f} s")
+        smoke.check("RTMUAVDet parameters", n_params == RTM_PARAMS,
+                    f"{n_params} (the flax init has {RTM_PARAMS})")
+        scales = rtm_det_scales(RTM_SIZE)
+        detect = make_rtm_detector(model, RTM_SIZE, scales)
+        with torch.inference_mode():
+            requests = [self.frames(RTM_BATCH, (RTM_SIZE, RTM_SIZE))
+                        for _ in range(REQUESTS)]
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            results = [detect(r) for r in requests]
+            torch.cuda.synchronize()
+            count_launches(smoke, kernels, "RTMUAVDet", REQUESTS)
+            check_requests(smoke, results, RTM_BATCH)
+            outs = model(preprocess(requests[0], RTM_SIZE, model.dtype))
+            shapes = [tuple(o.obj.shape) for o in outs]
+            smoke.check("RTMUAVDet heads", shapes == [
+                (RTM_BATCH, 3, s, s, 1) for s in scales] and all(
+                    o.obj.dtype == o.bbox.dtype == torch.float32
+                    for o in outs), f"{shapes}")
+            plain = make_rtm_detector(model, RTM_SIZE, scales,
+                                      alive_fn=nms_alive_plain)(requests[0])
+            compare_detections(smoke, results[0], plain,
+                               name="RTMUAVDet detections vs plain path")
+            print(f"  boxes vs the plain path: valid equal "
+                  f"{torch.equal(results[0].valid, plain.valid)}, max |diff|"
+                  f" {float((results[0].boxes - plain.boxes).abs().max())}"
+                  " px")
+            # kernel C's input on this path: the sorted top 512
+            boxes, scores = rtm_candidates(outs, RTM_SIZE, scales)
+            top_s, top_i = _topk_wide(scores, 512)
+            top_b = torch.gather(boxes, 1, top_i[..., None].expand(
+                *top_i.shape, 4))
+            order = torch.argsort(-top_s, dim=1, stable=True)
+            self.inputs["nms"] = torch.gather(
+                top_b, 1, order[..., None].expand(*order.shape, 4)
+            ).contiguous()
+        self.inputs["detect"] = (detect, requests[0])
+        top = float(plain.scores.max())
+        print(f"RTMUAVDet detections: valid per image "
+              f"{results[0].valid.sum(1).tolist()}, top score {top:.4f}")
+
+    def training(self):
+        """7m: cfg5, 4 Adam steps of full-width RTMUAVDet at 640 px, batch
+        8, bf16 autocast over float32 parameters; then the 64 px model in
+        float32 on the card against the CPU, 3 steps (dropout off: the
+        CPU's and the card's generators differ)."""
+        import torch
+        from uavdet_tpu_torch import kernels
+        from uavdet_tpu_torch.models.rtm_uav_det import (Dropout,
+                                                         rtm_det_scales)
+        from uavdet_tpu_torch.training.rtm import (make_rtm_train_step,
+                                                   rtm_optimizer)
+        from uavdet_tpu_torch.utils.seeding import seeded_rtm_model
+        smoke, dev = self.smoke, self.dev
+        bf16 = torch.bfloat16
+        model = seeded_rtm_model(SEED, RTM_SIZE, dev, torch.float32)
+        scales = rtm_det_scales(RTM_SIZE)
+        step = make_rtm_train_step(model, rtm_optimizer(model), RTM_SIZE,
+                                   scales, bf16)
+        data = [(self.frames(RTM_BATCH, (RTM_SIZE, RTM_SIZE)),
+                 self.targets(RTM_BATCH, RTM_SIZE))
+                for _ in range(RTM_TRAIN_STEPS)]
+        before = [p.detach().clone() for p in model.parameters()]
+        seen, handles = conv_dtype_hooks(model)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        losses = [step(x, t) for x, t in data]
+        torch.cuda.synchronize()
+        count_launches(smoke, kernels, "RTMUAVDet train step",
+                       RTM_TRAIN_STEPS)
+        for h in handles:
+            h.remove()
+        losses = [float(v) for v in losses]
+        moved = max(float((p.detach() - q).abs().max())
+                    for p, q in zip(model.parameters(), before))
+        smoke.check("RTMUAVDet train losses finite and parameters moved",
+                    all(np.isfinite(losses)) and moved > 0
+                    and step.state.step == RTM_TRAIN_STEPS,
+                    f"{losses}, max |change| {moved:.3g}, "
+                    f"{step.state.step} updates")
+        smoke.check("RTMUAVDet train convs run in bf16",
+                    len(seen) > 0 and set(seen) == {bf16},
+                    f"{len(seen)} conv outputs, dtypes {set(seen)}")
+        print(f"peak device memory of {RTM_TRAIN_STEPS} cfg5 steps "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+              f"{self.tag}")
+        self.inputs["train"] = (step, data[0])
+
+        gen_cpu = torch.Generator().manual_seed(SEED)
+        size = RTM_PARITY_SIZE
+        batches = [(torch.randint(0, 256, (RTM_PARITY_BATCH, size, size, 3),
+                                  dtype=torch.uint8, generator=gen_cpu),
+                    torch.tensor([[[8.0, 10.0, 30.0, 34.0]],
+                                  [[20.0, 4.0, 50.0, 28.0]]]))
+                   for _ in range(RTM_PARITY_STEPS)]
+
+        def losses(where):
+            m = seeded_rtm_model(SEED, size, where, torch.float32)
+            for mod in m.modules():
+                if isinstance(mod, Dropout):
+                    mod.p = 0.0
+            st = make_rtm_train_step(m, rtm_optimizer(m), size,
+                                     rtm_det_scales(size), torch.float32)
+            return np.array([float(st(x.to(where), t.to(where)))
+                             for x, t in batches])
+
+        # cuDNN's deterministic algorithms: Adam makes a full step of any
+        # gradient at the float noise floor, so three steps carry the
+        # reassociation of a nondeterministic backward into the losses;
+        # the default algorithms' run is printed beside
+        torch.backends.cudnn.deterministic = True
+        try:
+            kernels.reset_launch_counts()
+            got = {"card": losses(dev)}
+            count_launches(smoke, kernels, "RTMUAVDet float32 train step",
+                           RTM_PARITY_STEPS)
+        finally:
+            torch.backends.cudnn.deterministic = False
+        got["cpu"] = losses(torch.device("cpu"))
+        default = losses(dev)
+        print("  with cuDNN's default algorithms, relative to the CPU: "
+              f"{(np.abs(default - got['cpu']) / got['cpu']).tolist()}")
+        rel = np.abs(got["card"] - got["cpu"]) / np.abs(got["cpu"])
+        smoke.check("RTMUAVDet float32 train steps, card vs CPU",
+                    bool((rel < PARITY_RTOL).all()),
+                    f"card {got['card'].tolist()} cpu {got['cpu'].tolist()}"
+                    f" relative {rel.tolist()} (rtol {PARITY_RTOL})")
+
+    def mosaic(self, data_dir, data_config, host_cls, pipeline_fps):
+        """7n: the Lanczos-4 resize on the card against the CPU; the mosaic
+        train pipeline over 7j's tree on the card against the same on the
+        CPU (frames decoded by nvJPEG, copied to the host: ``host_cls``);
+        the pipelines' frames per second with mosaic on and off, in turns;
+        ``train.main`` with ``dataset.mosaic`` on, on its default device."""
+        import os
+        import torch
+        from uavdet_tpu_torch import kernels
+        from uavdet_tpu_torch import train as train_entry
+        from uavdet_tpu_torch.data import DataPipeline, load_manifest
+        from uavdet_tpu_torch.ops.resize import lanczos4_resize
+        from uavdet_tpu_torch.utils.config import Config
+        smoke, dev = self.smoke, self.dev
+        readings = {"lanczos4_ms": {}}
+        for src, dst in LANCZOS_CASES:
+            x = self.frames(1, src)[0]
+            got = lanczos4_resize(x, *dst)
+            want = lanczos4_resize(x.cpu(), *dst)
+            diff = int((got.cpu().int() - want.int()).abs().max())
+            smoke.check(f"lanczos4_resize {src} -> {dst}: card vs CPU",
+                        torch.equal(got.cpu(), want) and got.is_cuda
+                        == (dev.type == "cuda"), f"max |diff| {diff} units "
+                        "(bitwise: integer sums in float64)")
+            xs = self.frames(4 * TRAIN_BATCH, src)
+            ms = cuda_ms(lambda: lanczos4_resize(xs, *dst), 10, 2)
+            readings["lanczos4_ms"][f"{src}->{dst}"] = ms
+            print(f"lanczos4_resize of {4 * TRAIN_BATCH} uint8 frames "
+                  f"{src} -> {dst} (a mosaic batch's sources): {ms:.3f} ms "
+                  f"{self.tag}")
+        here = os.getcwd()
+        os.chdir(data_dir)
+        try:
+            cfg = data_config()
+            recs = load_manifest(cfg.dataset.train_loader_path)
+            kw = dict(input_size=SIZE, batch_size=TRAIN_BATCH, train=True,
+                      seed=11, workers=DATA_WORKERS, mosaic=True)
+            kernels.reset_launch_counts()
+            card = list(DataPipeline(recs, device=dev, **kw))
+            count_launches(smoke, kernels, "mosaic pipeline", len(card))
+            host = list(host_cls(recs, device="cpu", **kw))
+            same = len(card) == len(host) > 0 and all(
+                torch.equal(c.box_mask.cpu(), h.box_mask)
+                and torch.equal(c.boxes.cpu(), h.boxes)
+                for c, h in zip(card, host))
+            n_boxes = [int(c.box_mask.sum()) for c in card]
+            smoke.check("mosaic pipeline: membership, masks and boxes, card "
+                        "vs CPU, bitwise", same and max(n_boxes) > TRAIN_BATCH,
+                        f"{len(card)} / {len(host)} batches of {TRAIN_BATCH},"
+                        f" boxes per batch {n_boxes}")
+            d = [(torch.round(c.image.cpu() * 255)
+                  - torch.round(h.image * 255)).abs() for c, h in
+                 zip(card, host)]
+            diff = max(float(x.max()) for x in d)
+            mean = float(np.mean([float(x.mean()) for x in d]))
+            smoke.check("mosaic frame stage: card vs CPU",
+                        diff <= FRAME_TOL_UNITS, f"max |diff| {diff:.0f} "
+                        f"units of 255 (limit {FRAME_TOL_UNITS}), mean "
+                        f"{mean:.4f}")
+            fps = {"mosaic": [], "plain": []}
+            for which in ("mosaic", "plain", "plain", "mosaic"):
+                fps[which].append(pipeline_fps(
+                    recs, True, TRAIN_BATCH, DATA_WORKERS,
+                    mosaic=which == "mosaic")[0])
+            readings["train_pipeline_frames_per_s"] = fps
+            print(f"train pipeline alone, batch {TRAIN_BATCH}, "
+                  f"{DATA_WORKERS} workers, frames/s in turns: mosaic "
+                  f"{[round(v, 1) for v in fps['mosaic']]}, plain "
+                  f"{[round(v, 1) for v in fps['plain']]} {self.tag}")
+            conf = cfg.to_dict()
+            conf["dataset"]["mosaic"] = True
+            conf["train"]["checkpoint"]["dir"] = "logs/checkpoints_mosaic"
+            pipe, _ = train_entry.build_pipelines(Config(conf), "cuda")
+            kernels.reset_launch_counts()
+            final = train_entry.main(Config(conf), [])
+            torch.cuda.synchronize()
+            count_launches(smoke, kernels, "train entry point DyYOLO, mosaic",
+                           TRAIN_VAL_BATCHES)
+            smoke.check("train entry point with dataset.mosaic: true",
+                        pipe.mosaic and np.isfinite(final["val_loss"])
+                        and final["val_AP"] >= 0
+                        and os.path.exists("logs/checkpoints_mosaic/last"),
+                        f"{final}")
+        finally:
+            os.chdir(here)
+        self.inputs["mosaic"] = readings
+
+    def timing(self):
+        """Phase 8's RTMUAVDet rows: the detector per batch, kernel C at
+        its input on this path (8, 512) beside its plain version, and cfg5
+        per step."""
+        import torch
+        from uavdet_tpu_torch.ops.nms import nms_alive, nms_alive_plain
+        out = {}
+        detect, x = self.inputs["detect"]
+        with torch.inference_mode():
+            ms = cuda_ms(lambda: detect(x))
+        out["detector"] = {"ms_per_batch": ms, "fps": RTM_BATCH * 1e3 / ms,
+                           "batch": RTM_BATCH, "size": RTM_SIZE}
+        print(f"detector RTMUAVDet @{RTM_SIZE} bs={RTM_BATCH} uint8 -> "
+              f"Detections: {ms:.3f} ms/batch, {RTM_BATCH * 1e3 / ms:.1f} "
+              f"fps {self.tag}")
+        boxes = self.inputs["nms"]
+        k1 = cuda_ms(lambda: nms_alive(boxes, 0.5))
+        p1 = cuda_ms(lambda: nms_alive_plain(boxes, 0.5))
+        k2 = cuda_ms(lambda: nms_alive(boxes, 0.5))
+        p2 = cuda_ms(lambda: nms_alive_plain(boxes, 0.5))
+        b, n = boxes.shape[:2]
+        alive = nms_alive(boxes, 0.5)
+        row = {"ms": min(k1, k2), "plain_ms": min(p1, p2),
+               "library_ms": None,
+               "back_to_back_ms": back_to_back_ms(
+                   lambda: nms_alive(boxes, 0.5)),
+               "max_abs_err": float(not torch.equal(
+                   alive, nms_alive_plain(boxes, 0.5))),
+               "shape": [b, n],
+               **bound(nbytes(boxes, alive),
+                       b * (5 * n + 14 * n * (n - 1) // 2), F32_FLOPS)}
+        out["nms"] = row
+        print(f"nms on RTMUAVDet's candidates ({b}, {n}): kernel {k1:.4f} / "
+              f"{k2:.4f} ms ({row['back_to_back_ms']:.4f} back to back), "
+              f"plain {p1:.4f} / {p2:.4f} ms, bound {row['bound_ms']:.5f} "
+              f"ms {self.tag}")
+        step, (imgs, t) = self.inputs["train"]
+        ms = cuda_ms(lambda: step(imgs, t), TRAIN_ITERS, TRAIN_WARMUP)
+        out["train"] = {"ms_per_step": ms, "images_per_s":
+                        RTM_BATCH * 1e3 / ms, "batch": RTM_BATCH,
+                        "size": RTM_SIZE}
+        print(f"train RTMUAVDet (cfg5) @{RTM_SIZE} bs={RTM_BATCH} bf16 "
+              f"Adam: {ms:.3f} ms/step, {RTM_BATCH * 1e3 / ms:.1f} images/s "
+              f"{self.tag}")
+        out["mosaic"] = self.inputs.get("mosaic")
+        print(json.dumps({"rtm": out}))
+        return row
+
+    def profiles(self):
+        """(name, fn, batches) of phase 9's windows on these paths."""
+        out = []
+        if "detect" in self.inputs:
+            detect, x = self.inputs["detect"]
+            out.append(("RTMUAVDet", lambda: detect(x), 3))
+        if "train" in self.inputs:
+            step, (imgs, t) = self.inputs["train"]
+            out.append(("RTMUAVDet train step cfg5, 2 steps",
+                        lambda: [step(imgs, t) for _ in range(2)], 2))
+        return out
 
 
 def main() -> int:
@@ -1532,11 +1896,11 @@ def main() -> int:
         def _load(self, path, stream=None):
             return jpeg.decode([self._read(path)], dev)[0].cpu()
 
-    def pipeline_fps(recs, train, batch, workers):
+    def pipeline_fps(recs, train, batch, workers, mosaic=False):
         """Frames per second of the pipeline alone over DATA_EPOCHS epochs
         after one."""
         pipe = DataPipeline(recs, SIZE, batch, train=train, seed=11,
-                            workers=workers, device=dev)
+                            workers=workers, mosaic=mosaic, device=dev)
         list(pipe)
         torch.cuda.synchronize()
         t0, n = time.perf_counter(), 0
@@ -2074,6 +2438,13 @@ def main() -> int:
     smoke.phase("7k export: artifacts served by a fresh process, the export "
                 "and port CLIs", export_path)
 
+    rtm = RTMAndMosaic(smoke, dev, gen, tag)
+    smoke.phase("7l RTMUAVDet serving at cfg4", rtm.serving)
+    smoke.phase("7m RTMUAVDet training at cfg5", rtm.training)
+    smoke.phase("7n mosaic path", rtm.mosaic,
+                os.path.join(workdir, "data_path"), data_config, HostFrames,
+                pipeline_fps)
+
     def time_pair(name, kern, plain, lib, iters=ITERS, warmup=WARMUP,
                   plain_iters=ITERS, plain_warmup=WARMUP):
         """Kernel and plain version in turns, so that neither side owns the
@@ -2302,6 +2673,11 @@ def main() -> int:
 
     smoke.phase("8 timing: training", timing_train)
 
+    def timing_rtm():
+        smoke.stats["nms"]["rtm"] = rtm.timing()
+
+    smoke.phase("8 timing: RTMUAVDet", timing_rtm)
+
     def profile(name, fn, batches):
         """Device time by kernel over a few batches, and the device's idle
         share."""
@@ -2347,7 +2723,8 @@ def main() -> int:
                   lambda: inputs["exported"](frames), 3),
                  ("DyYOLO train step cfg6, 2 microbatches = 1 update",
                   lambda: [inputs["train"][2](inputs["train"][1], b)
-                           for b in inputs["train"][3][:2]], 2)):
+                           for b in inputs["train"][3][:2]], 2),
+                 *rtm.profiles()):
         try:
             profile(*args)
         except Exception:   # a profiler that cannot trace the card fails nothing

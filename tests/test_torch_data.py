@@ -15,8 +15,9 @@ package's ``uavdet_tpu/data/``, on the CPU.
   frame stage against the JAX transform, the JPEG reference that the card
   holds nvJPEG's decode against (PIL's own files and decodes, the JAX
   writer's bytes), and the pipeline's failures: an unreadable file raises from ``__iter__``, a CUDA
-  pipeline on a host without a card raises (no fallback), ``mosaic=True``
-  and ``set_local_rows`` raise.
+  pipeline on a host without a card raises (no fallback),
+  ``set_local_rows`` raises (``mosaic=True`` is ported: see
+  tests/test_torch_mosaic.py).
 """
 
 import filecmp
@@ -335,8 +336,9 @@ def test_early_stop_ends_the_producer(records):
 
 
 def test_not_ported_options_raise(records):
-    with pytest.raises(NotImplementedError, match="mosaic"):
-        DataPipeline(records, SIZE, 2, train=True, mosaic=True, device="cpu")
+    # the mosaic path is ported now; the multi-host decode is not
+    assert DataPipeline(records, SIZE, 2, train=True, mosaic=True,
+                        device="cpu").mosaic
     with pytest.raises(NotImplementedError, match="multi-host"):
         DataPipeline(records, SIZE, 2, train=True,
                      device="cpu").set_local_rows([0])

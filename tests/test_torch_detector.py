@@ -184,6 +184,9 @@ def test_port_imports_no_jax():
             "import uavdet_tpu_torch.utils.torch_import\n"
             "import uavdet_tpu_torch.scripts.export_detector\n"
             "import uavdet_tpu_torch.scripts.port_reference_checkpoint\n"
+            "import uavdet_tpu_torch.models.rtm_uav_det\n"
+            "import uavdet_tpu_torch.training.rtm\n"
+            "import uavdet_tpu_torch.ops.resize\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'uavdet_tpu', 'yaml')]\n"
             "assert not bad, bad\n"

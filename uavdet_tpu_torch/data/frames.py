@@ -74,15 +74,16 @@ def resize_boxes(boxes: np.ndarray, w: int, h: int, size: int) -> np.ndarray:
 
 
 def box_path(boxes: np.ndarray, w: int, h: int, size: int, train: bool,
-             rng) -> tuple:
+             rng=None, mat=None) -> tuple:
     """What the transform does to one sample's boxes: resize, and in
     training the affine and the drop of boxes that degenerate under it.
-    -> (float32 boxes, the (2, 3) matrix or None). Draws from ``rng`` only
-    in training, as the JAX package does."""
+    -> (float32 boxes, the (2, 3) matrix or None). In training the affine is
+    ``mat`` where given (drawn by the caller), else drawn from ``rng``, as
+    the JAX package draws it."""
     boxes = resize_boxes(boxes, w, h, size)
-    mat = None
     if train:
-        mat = affine_matrix(rng, size)
+        if mat is None:
+            mat = affine_matrix(rng, size)
         boxes = affine_boxes(boxes, mat, size)
         if len(boxes):
             keep = ((boxes[:, 2] - boxes[:, 0]) > 1.0) & (

@@ -21,6 +21,17 @@ What happens where:
 * device (``device``, the card unless the caller names the CPU): the frame
   stage (``frames.frame_stage``: resize, training affine, /255).
 
+Mosaic (``mosaic=True``, training only; validation ignores it, as in the
+JAX package): each position draws four record indices from its RNG
+(``integers(0, len(records), size=4)``), then its affine, in the JAX
+package's order; its own record is not read. The four sources are read and
+decoded; ``mosaic.mosaic_layout`` of their sizes and manifest boxes gives
+the placed boxes on the host (then the affine, the 1 px degenerate drop and
+drop-empty, as the JAX package's geometry-only replay does), and on the
+device ``mosaic.mosaic_canvas`` (Lanczos-4 into the quadrants, cv2's bit
+for bit) makes the (S, S) canvas that the frame stage takes: its resize is
+the identity at (S, S), then the affine and /255.
+
 The hand-off on the card: a producer thread runs the frame stage on the
 side stream and copies boxes and masks ``non_blocking`` from pinned memory
 on it; it records one event per batch. ``__iter__``
@@ -32,10 +43,9 @@ in [0, 1]), so ``Trainer._to_device`` copies nothing. An error in the
 producer (a read, a decode, a build of the nvJPEG library) is raised by
 ``__iter__``.
 
-Not ported: the mosaic pixel path (Lanczos-4; ``mosaic=True`` raises) and
-the multi-host sharded decode (``set_local_rows`` raises); the JAX
-package's native C++ loader has no counterpart (nvJPEG and the device
-resize do its job on the card).
+Not ported: the multi-host sharded decode (``set_local_rows`` raises; it
+comes with multi-device training); the JAX package's native C++ loader has
+no counterpart (nvJPEG and the device resize do its job on the card).
 """
 
 import collections
@@ -49,6 +59,7 @@ import torch
 
 from ..utils.datatypes import BatchData
 from . import frames
+from .mosaic import mosaic_canvas, mosaic_layout
 from .remote import read_bytes
 
 _END = object()
@@ -78,11 +89,6 @@ class DataPipeline:
                  mosaic: bool = False, shuffle: Optional[bool] = None,
                  drop_last: bool = True, fs=None, prefetch: int = 2,
                  workers: int = 1, fmt: str = "yolo", device="cuda"):
-        if mosaic:
-            raise NotImplementedError(
-                "mosaic=True: the mosaic pixel path (Lanczos-4 resize into "
-                "quadrants) is not ported to uavdet_tpu_torch yet; see "
-                "ROADMAP.md queue 1, 'the mosaic pixel path'")
         if fmt not in ("yolo", "custom"):
             raise ValueError(f"unknown dataset format: {fmt!r}")
         self.device = torch.device(device)
@@ -93,6 +99,7 @@ class DataPipeline:
         self.input_size = input_size
         self.batch_size = batch_size
         self.train = train
+        self.mosaic = bool(mosaic) and train
         self.max_boxes = max_boxes
         self.shuffle = train if shuffle is None else shuffle
         self.drop_last = drop_last
@@ -136,28 +143,41 @@ class DataPipeline:
         with torch.cuda.device(self.device), torch.cuda.stream(stream):
             return frames.decode([data], self.device)[0]
 
-    def _samples(self, ex, order, stream) -> Iterator[tuple]:
-        """(record index, decoded frame) in ``order``, the reads and decodes
-        running ahead in the pool by a bounded window."""
+    def _samples(self, ex, groups, stream) -> Iterator[list]:
+        """The decoded frames of each group of record indices in ``groups``,
+        in order, the reads and decodes running ahead in the pool by a
+        bounded window of groups."""
         ahead = max(self.batch_size * 4, self.workers * 4)
         pending = collections.deque()
-        it = iter(order)
+        it = iter(groups)
         while True:
             while len(pending) < ahead:
-                i = next(it, None)
-                if i is None:
+                group = next(it, None)
+                if group is None:
                     break
-                pending.append((i, ex.submit(
-                    self._load, self.records[i]["img_path"], stream)))
+                pending.append([ex.submit(
+                    self._load, self.records[i]["img_path"], stream)
+                    for i in group])
             if not pending:
                 return
-            i, fut = pending.popleft()
-            yield i, fut.result()
+            yield [fut.result() for fut in pending.popleft()]
+
+    def _mosaic_draws(self, order, rng, rngs) -> list:
+        """Per position: its four source indices, then its affine, drawn
+        from the position's RNG (the order's RNG shared in sequence where
+        ``workers`` is 1), as the JAX package draws them."""
+        draws = []
+        for pos in range(len(order)):
+            r = rngs[pos] if rngs is not None else rng
+            idx = r.integers(0, len(self.records), size=4)
+            draws.append((idx, frames.affine_matrix(r, self.input_size)))
+        return draws
 
     def _plan(self, ex, stream=None) -> Iterator[list]:
-        """One epoch's batches: lists of (decoded frame, float32 boxes,
-        affine matrix or None) of the samples that keep a box; the boxes
-        and membership from the host alone."""
+        """One epoch's batches: lists of (decoded frame, or in mosaic mode
+        the four decoded sources and their layout; float32 boxes; affine
+        matrix or None) of the samples that keep a box; the boxes and
+        membership from the host alone."""
         rng = np.random.default_rng(self.seed + self._epoch)
         order = (rng.permutation(len(self.records)) if self.shuffle
                  else np.arange(len(self.records)))
@@ -165,16 +185,32 @@ class DataPipeline:
         if self.workers > 1:
             rngs = [np.random.default_rng(s) for s in np.random.SeedSequence(
                 [self.seed, self._epoch]).spawn(len(order))]
+        s = self.input_size
+        if self.mosaic:
+            draws = self._mosaic_draws(order, rng, rngs)
+            groups = [list(idx) for idx, _ in draws]
+        else:
+            groups = ([i] for i in order)
         kept = []
-        for pos, (i, frame) in enumerate(self._samples(ex, order, stream)):
-            h, w = frame.shape[:2]
-            boxes, mat = frames.box_path(
-                np.asarray([self.records[i]["bbox"]], np.float32), w, h,
-                self.input_size, self.train,
-                rngs[pos] if rngs is not None else rng)
+        for pos, loaded in enumerate(self._samples(ex, groups, stream)):
+            if self.mosaic:
+                idx, mat = draws[pos]
+                layout = mosaic_layout(
+                    [tuple(f.shape[:2]) for f in loaded],
+                    [self.records[j]["bbox"] for j in idx], (s, s))
+                placed = np.asarray([b for *_, b in layout],
+                                    np.float32).reshape(-1, 4)
+                boxes, mat = frames.box_path(placed, s, s, s, True, mat=mat)
+                pixels = (loaded, layout)
+            else:
+                i, pixels = order[pos], loaded[0]
+                h, w = pixels.shape[:2]
+                boxes, mat = frames.box_path(
+                    np.asarray([self.records[i]["bbox"]], np.float32), w, h,
+                    s, self.train, rngs[pos] if rngs is not None else rng)
             if len(boxes) == 0:
                 continue  # drop-empty (collate parity, both reference fns)
-            kept.append((frame, boxes, mat))
+            kept.append((pixels, boxes, mat))
             if len(kept) == self.batch_size:
                 yield kept
                 kept = []
@@ -205,11 +241,14 @@ class DataPipeline:
 
     def _materialize(self, kept) -> BatchData:
         """One planned batch on the device: the frame stage over its
-        decoded frames (on the card inside the producer's side stream), and
+        decoded frames or mosaic canvases (on the card inside the
+        producer's side stream), and
         the boxes and masks, staged in pinned memory there."""
+        s = self.input_size
+        pixels = ([mosaic_canvas(*k[0], (s, s)) for k in kept]
+                  if self.mosaic else [k[0] for k in kept])
         image = frames.frame_stage(
-            [k[0] for k in kept], self.input_size,
-            [k[2] for k in kept] if self.train else None)
+            pixels, s, [k[2] for k in kept] if self.train else None)
         boxes, mask = self._collate_boxes([k[1] for k in kept])
         boxes, mask = torch.from_numpy(boxes), torch.from_numpy(mask)
         if self.device.type == "cuda":

@@ -29,6 +29,14 @@ program as one ``nn.Module`` holding the model, which ``export.py`` traces.
 ``decode_all_heads`` and ``decode_topk_heads`` (with ``_topk_wide``) are the
 JAX package's other two decodes, kept with its contracts; no detector path
 calls them (the detector keeps ``decode_topk_global``).
+
+``make_rtm_detector`` serves an RTMUAVDet, which ``make_detector`` does not
+take (as in the JAX package, whose only RTMUAVDet detector is the one of
+its benchmark, ``bench.py``'s cfg4): ``preprocess``, the eval-mode
+forward, the decoded heads to pixels, per image the top ``pre_nms_topk`` by
+objectness (``_topk_wide``: the lower index first on ties, as
+``lax.top_k``) and greedy NMS through ``batched_nms``, so the NMS kernel on
+the card.
 """
 
 from functools import lru_cache
@@ -348,3 +356,56 @@ def make_detector(model, hparams, input_size: int,
                                torch.as_tensor(ir, device=device)))
 
     return detect_dual if dual else detect
+
+
+def rtm_candidates(outs, input_size: int, det_scales: Sequence[int]):
+    """An RTMUAVDet's decoded heads -> boxes (B, N, 4) xyxy pixels and
+    scores (B, N), head-major: each head's cxcywh grid units times its
+    stride ``input_size // det_scales[h]``."""
+    boxes, scores = [], []
+    for h, o in enumerate(outs):
+        b = o.bbox.shape[0]
+        bb = o.bbox.reshape(b, -1, 4) * (input_size // det_scales[h])
+        boxes.append(torch.stack(
+            [bb[..., 0] - bb[..., 2] / 2, bb[..., 1] - bb[..., 3] / 2,
+             bb[..., 0] + bb[..., 2] / 2, bb[..., 1] + bb[..., 3] / 2],
+            dim=-1))
+        scores.append(o.obj.reshape(b, -1))
+    return torch.cat(boxes, dim=1), torch.cat(scores, dim=1)
+
+
+def make_rtm_detector(model, input_size: int, det_scales: Sequence[int],
+                      pre_nms_topk: int = 512, nms_iou: float = 0.5,
+                      max_det: int = 300,
+                      compute_dtype: torch.dtype | None = None,
+                      alive_fn=nms_alive):
+    """``detect(images) -> Detections`` for an RTMUAVDet in eval mode: the
+    unfolded detect of the JAX package's cfg4 (``bench.py:158-186``) with
+    the boxes kept beside the scores. NHWC frames (B, H, W, 3), uint8 or
+    float in [0, 1], are moved to the model's device; no score threshold
+    (the scores are the heads' probabilities); invalid slots are zero.
+    ``compute_dtype`` None is the model's own; ``alive_fn`` is the NMS
+    survivor mask (``nms_alive_plain`` holds the kernel against the plain
+    path)."""
+
+    @torch.inference_mode()
+    def detect(images) -> Detections:
+        param = next(model.parameters())
+        x = preprocess(torch.as_tensor(images, device=param.device),
+                       input_size, compute_dtype or param.dtype)
+        boxes, scores = rtm_candidates(model(x), input_size, det_scales)
+        k = min(pre_nms_topk, scores.shape[1])
+        top_s, top_i = _topk_wide(scores, k)
+        top_b = torch.gather(boxes, 1, top_i[..., None].expand(*top_i.shape,
+                                                               4))
+        keep, _, _ = batched_nms(top_b, top_s, nms_iou, max_det, alive_fn)
+        valid = keep >= 0
+        safe = keep.clamp_min(0)
+        out_b = torch.gather(top_b, 1, safe[..., None].expand(*safe.shape,
+                                                              4))
+        return Detections(
+            boxes=torch.where(valid[..., None], out_b, 0.0),
+            scores=torch.where(valid, torch.gather(top_s, 1, safe), 0.0),
+            valid=valid)
+
+    return detect

@@ -20,6 +20,8 @@ from torch import nn
 from ..models.dysoem_simfpn import Experts
 from ..models.layers import DyConvModule, ResidualBlock
 from ..models.registry import build_model, serving_dtype
+from ..models.rtm_uav_det import (RTM_ANCHORS, MDyConv, RTMUAVDet,
+                                  rtm_det_scales)
 
 
 def seed_everything(seed: int) -> None:
@@ -52,6 +54,9 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
             normal(m.bias, 0.05)
             normal(m.running_mean, 0.05)
             uniform(m.running_var, 0.8, 1.2)
+        elif isinstance(m, nn.GroupNorm):
+            uniform(m.weight, 0.8, 1.2)
+            normal(m.bias, 0.05)
         elif isinstance(m, DyConvModule):
             normal(m.weights, math.sqrt(2.0 / m.weights[0, 0].numel()))
         elif isinstance(m, Experts):   # HWIO: fan-in is all but the last axis
@@ -68,11 +73,36 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
                 uniform(branch[1].bn.weight, 0.1, 0.3)
     # heads: small weights and an objectness prior of 0.01, the usual YOLO
     # start, so scores spread below 1 instead of saturating
-    for head in model.yolo_head.detection_head:
-        normal(head["obj"]["conv_obj"].weight, 0.1)
-        head["obj"]["conv_obj"].bias.fill_(-math.log(99.0))
-        normal(head["bbox"]["conv_bbox"].weight, 0.1)
+    if isinstance(model, RTMUAVDet):
+        heads = [(getattr(model.head, f"obj_{h}"),
+                  getattr(model.head, f"bbox_{h}"))
+                 for h in range(model.head.n_heads)]
+        # an MDyConv's spatial filter starts near a small centre tap, so
+        # that the branch adds to its residual instead of outgrowing it
+        for m in model.modules():
+            if isinstance(m, MDyConv):
+                normal(m.kernel_fc.weight, 0.02)
+                normal(m.channel_fc.weight, 0.1)
+    else:
+        heads = [(head["obj"]["conv_obj"], head["bbox"]["conv_bbox"])
+                 for head in model.yolo_head.detection_head]
+    for obj, bbox in heads:
+        normal(obj.weight, 0.1)
+        obj.bias.fill_(-math.log(99.0))
+        normal(bbox.weight, 0.1)
     return model
+
+
+def seeded_rtm_model(seed: int, input_size: int = 640, device="cuda",
+                     dtype: torch.dtype | None = None) -> RTMUAVDet:
+    """An RTMUAVDet (``RTM_ANCHORS``, the heads of ``input_size``) with
+    seeded weights, in eval mode, on ``device`` (the card unless named) in
+    ``dtype`` (None: ``serving_dtype``). It is built directly, as
+    ``build_model`` does not dispatch it."""
+    model = init_weights(RTMUAVDet(RTM_ANCHORS, det_scales=rtm_det_scales(
+        input_size)), seed).eval()
+    return model.to(device=device, dtype=serving_dtype(device)
+                    if dtype is None else dtype)
 
 
 def seeded_model(name: str, hparams, seed: int, device="cuda",

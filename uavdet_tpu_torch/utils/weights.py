@@ -19,6 +19,16 @@ map for that model yet):
                                          -> kept as they are, one tensor each
   HWIO conv kernels of stem, neck, head  -> OIHW
 
+``rtm_state_dict_from_flax`` maps an RTMUAVDet tree, or the tree of one of
+its blocks, onto the names of ``models/rtm_uav_det.py``, which are the flax
+scopes' (``stem``, ``MDyCSP_1``, ``mdy_conv``, ``neck``, ``head/obj_0``...)
+but for ``RTMConvModule_0`` inside an MDyConv, which is ``base``:
+
+  Conv_0 + BatchNorm_0 of an RTMConvModule -> conv + bn
+  Dense kernel (I, O) + bias               -> nn.Linear weight (O, I) + bias
+  GroupNorm scale + bias                   -> weight + bias
+  HWIO conv kernel + bias (neck, head)     -> OIHW weight + bias
+
 Arrays stay numpy; nothing here imports JAX.
 """
 
@@ -155,11 +165,96 @@ def dysoem_state_dict_from_flax(variables) -> Dict[str, np.ndarray]:
     return sd
 
 
+_RTM_CONV_MODULES = ("stem", "base_conv", "conv1", "conv2", "transition1",
+                     "transition2")
+
+
+def rtm_state_dict_from_flax(variables, block: str = "RTMUAVDet"
+                             ) -> Dict[str, np.ndarray]:
+    """Flax ``{"params": ..., "batch_stats": ...}`` of an RTMUAVDet, or of
+    one of its blocks named by ``block`` (``"MDyConv"``, ``"MDyCSPModule"``,
+    ``"MDyEncoder"``, ``"MFDFEncoderModule"``, ``"RTMHead"``) -> the state
+    dict of the port's module of that class, as numpy arrays. Without
+    ``batch_stats`` (a tree of the parameters' shape, such as Adam's
+    moments) the running statistics are left out.
+    """
+    sd: Dict[str, np.ndarray] = {}
+
+    def conv_module(prefix, p, s):
+        if "RTMConvModule_0" in p:   # StemLayer wraps one
+            p, s = p["RTMConvModule_0"], s.get("RTMConvModule_0", {})
+        sd[f"{prefix}conv.weight"] = _conv_w(p["Conv_0"]["kernel"])
+        if "BatchNorm_0" in s:
+            _bn(sd, f"{prefix}bn", p["BatchNorm_0"], s["BatchNorm_0"])
+        else:
+            sd[f"{prefix}bn.weight"] = np.asarray(p["BatchNorm_0"]["scale"])
+            sd[f"{prefix}bn.bias"] = np.asarray(p["BatchNorm_0"]["bias"])
+
+    def conv(prefix, p):
+        sd[f"{prefix}weight"] = _conv_w(p["kernel"])
+        sd[f"{prefix}bias"] = np.asarray(p["bias"])
+
+    def linear(prefix, p):
+        sd[f"{prefix}weight"] = np.ascontiguousarray(
+            np.transpose(np.asarray(p["kernel"])))
+        sd[f"{prefix}bias"] = np.asarray(p["bias"])
+
+    def mdyconv(prefix, p, s):
+        conv_module(f"{prefix}base.", p["RTMConvModule_0"],
+                    s.get("RTMConvModule_0", {}))
+        for fc in ("attention", "channel_fc", "kernel_fc"):
+            linear(f"{prefix}{fc}.", p[fc])
+
+    def csp(prefix, p, s):
+        for name in _RTM_CONV_MODULES[1:]:
+            conv_module(f"{prefix}{name}.", p[name], s.get(name, {}))
+        mdyconv(f"{prefix}mdy_conv.", p["mdy_conv"],
+                s.get("mdy_conv", {}))
+
+    def encoder(prefix, p, s):
+        for name in ("group_norm_in", "group_norm_out"):
+            sd[f"{prefix}{name}.weight"] = np.asarray(p[name]["scale"])
+            sd[f"{prefix}{name}.bias"] = np.asarray(p[name]["bias"])
+        for k in (1, 3, 5):
+            name = f"mdy_conv_{k}x{k}"
+            mdyconv(f"{prefix}{name}.", p[name], s.get(name, {}))
+        conv(f"{prefix}mlp_fc1.", p["mlp_fc1"])
+        conv(f"{prefix}mlp_fc2.", p["mlp_fc2"])
+
+    def mfdf(prefix, p, s):
+        conv(f"{prefix}upsample_conv.", p["upsample_conv"])
+        conv(f"{prefix}downsample.", p["downsample"])
+        for name in ("encoder_x1", "encoder_x2"):
+            encoder(f"{prefix}{name}.", p[name], s.get(name, {}))
+
+    def head(prefix, p, s):
+        for name, q in p.items():
+            conv(f"{prefix}{name}.", q)
+
+    def model(prefix, p, s):
+        conv_module(f"{prefix}stem.", p["stem"], s.get("stem", {}))
+        csp(f"{prefix}MDyCSP_1.", p["MDyCSP_1"], s.get("MDyCSP_1", {}))
+        csp(f"{prefix}MDyCSP_2.", p["MDyCSP_2"], s.get("MDyCSP_2", {}))
+        mfdf(f"{prefix}neck.", p["neck"], s.get("neck", {}))
+        head(f"{prefix}head.", p["head"], {})
+
+    fns = {"MDyConv": mdyconv, "MDyCSPModule": csp, "MDyEncoder": encoder,
+           "MFDFEncoderModule": mfdf, "RTMHead": head, "RTMUAVDet": model}
+    if block not in fns:
+        raise ValueError(f"unknown RTMUAVDet block {block!r}")
+    fns[block]("", variables["params"], variables.get("batch_stats", {}))
+    return sd
+
+
 def load_flax_variables(model: torch.nn.Module, variables) -> None:
     """Load a flax variables tree into the port's model (strict): a
-    DyYOLO-style interpreter, or a DySOEM_SimFPN."""
+    DyYOLO-style interpreter, a DySOEM_SimFPN, or an RTMUAVDet or one of
+    its blocks."""
+    from ..models import rtm_uav_det
     if hasattr(model, "tokens"):
         sd = state_dict_from_flax(variables, model.tokens)
+    elif type(model).__module__ == rtm_uav_det.__name__:
+        sd = rtm_state_dict_from_flax(variables, type(model).__name__)
     else:
         sd = dysoem_state_dict_from_flax(variables)
     model.load_state_dict({k: torch.from_numpy(np.array(v))
