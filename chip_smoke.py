@@ -154,6 +154,25 @@ nor PyYAML. The phases, in order:
      pipeline's, in turns; ``train.main`` with ``dataset.mosaic: true`` at
      cfg6's shape on its default device (A, B and C once per validation
      batch);
+  7o. multi-device (one card, so nothing across cards is measured): (a) in
+     a one-process NCCL group, the DDP and the FSDP2 step of the tiny
+     DyYOLO in float32 at 64 px against the single-device step (losses
+     rtol 1e-5), and cfg6 (full width, 640 px, batch 8, grad_batches 2,
+     bf16) placed both ways (finite, no kernel, ms per microbatch beside
+     the single-device step's); (b) two processes sharing the card over
+     gloo (``parallel.dryrun.launch``, NCCL refuses two ranks on one
+     device), each with a deadline: the float32 DDP step of a global batch
+     of 8 against one process (phase 7i's rtol 1e-4), cfg6 DDP at 4 rows a
+     rank, the sharded detect of phase 6's DyYOLO at batch 16 (8 a rank;
+     kernels A, B and C once per request on each rank) against the
+     one-process detect (the card's score limit, valid counts within 5 %;
+     bitwise or not, printed), ``Trainer.fit`` with ``devices: 2`` and
+     ``multihost: true`` over 7j's tree through ``set_local_rows`` (finite
+     losses, each rank read only its rows' files, rank 0's checkpoint
+     restores in one process), then FSDP2 over the two processes where
+     gloo carries its collectives on CUDA tensors (else said so); (c) the
+     two-rank ms per microbatch beside the one-process one, peak memory per
+     rank, as a ``{"multi_device": ...}`` line;
   8. times, with CUDA events, medians after warm-up: the four detectors per
      batch, and each kernel at its main-path shapes beside its plain
      version and beside one bf16 ``F.conv2d(groups=B)`` call that computes
@@ -291,6 +310,22 @@ RTM_PARITY_SIZE, RTM_PARITY_BATCH, RTM_PARITY_STEPS = 64, 2, 3
 LANCZOS_CASES = (((1080, 1920), (320, 320)), ((512, 640), (320, 320)),
                  ((150, 200), (320, 320)))
 
+# multi-device (7o): one card, so (a) a one-process NCCL group runs the DDP
+# and FSDP2 steps, and (b) two processes share the card over gloo (NCCL
+# refuses two ranks on one device). NCCL traffic, overlap and scaling
+# across cards are not measured here.
+MD_RANKS = 2
+MD_TIMEOUT = 420                     # seconds per launch of the two ranks
+MD_PARITY_BATCH = 8                  # the float32 step's global batch
+MD_TRAIN_BATCHES = 2                 # Trainer.fit's train batches (7j's tree)
+MD_ITERS, MD_WARMUP = 6, 2           # timed cfg6 microbatches
+MD_FRAMES_SEED = 7                   # the sharded detect's frames
+MD_BN_CALLS = 50                     # timed calls of one BatchNorm
+# float32 losses of one process group against the single-device step on
+# the same card: the same operations in the same order where the group has
+# one rank
+MD_ONE_RTOL = 1e-5
+
 KERNELS = {
     "stem_l1": ("uavdet_tpu_torch/csrc/stem_l1.cu",
                 "uavdet_tpu/ops/pallas_stem_split.py:62"),
@@ -348,6 +383,14 @@ EXPECTED_LAUNCHES = {
     "mosaic pipeline": {},
     "train entry point DyYOLO, mosaic": {"stem_l1": 1, "stem_l2": 1,
                                          "nms": 1},
+    # per request of the sharded detect, on each of the two ranks (7o)
+    "DyYOLO sharded detect, rank 0": {"stem_l1": 1, "stem_l2": 1, "nms": 1},
+    "DyYOLO sharded detect, rank 1": {"stem_l1": 1, "stem_l2": 1, "nms": 1},
+    # per microbatch of the DDP and FSDP2 steps (7o)
+    "DyYOLO train step, placed on a mesh": {},
+    # per validation batch of Trainer.fit with multihost, each rank (7o)
+    "Trainer.fit multihost, rank 0": {"stem_l1": 1, "stem_l2": 1, "nms": 1},
+    "Trainer.fit multihost, rank 1": {"stem_l1": 1, "stem_l2": 1, "nms": 1},
     # one run of a ladder's entry point: every stage, warm-up included
     "l2_ablate": {"stem_l2_stage": 5 * (LADDER_ITERS + 3)},
     "block_ablate": {"post_stem_block": 4 * (LADDER_ITERS + 3)},
@@ -994,6 +1037,586 @@ class RTMAndMosaic:
             out.append(("RTMUAVDet train step cfg5, 2 steps",
                         lambda: [step(imgs, t) for _ in range(2)], 2))
         return out
+
+
+def md_f32_losses(hp, batches, dev, mesh=None, fsdp=None):
+    """Float32 losses of the tiny DyYOLO over ``batches`` (global CPU
+    batches; on a mesh each rank takes its rows), grad_batches 2."""
+    import torch
+    from uavdet_tpu_torch.parallel import (local_batch_rows,
+                                           shard_host_batch, shard_model)
+    from uavdet_tpu_torch.training import (build_optimizer, init_state,
+                                           make_train_step)
+    from uavdet_tpu_torch.utils.seeding import seeded_model
+    model = seeded_model("DyYOLO", hp, SEED, dev, dtype=torch.float32)
+    placed = model if mesh is None else shard_model(model, mesh, fsdp)
+    state = init_state(placed, *build_optimizer(placed.parameters(), hp))
+    step = make_train_step(placed, hp, PARITY_SIZE, grad_batches=2,
+                           mesh=mesh)
+    losses = []
+    for b in batches:
+        if mesh is not None:
+            b = shard_host_batch(b, local_batch_rows(mesh, len(b.image)))
+        losses.append(float(step(state, type(b)(*(t.to(dev) for t in b)))
+                            ["loss"]))
+    return losses
+
+
+def md_ms(fn, dev, iters: int, warmup: int) -> float:
+    """Median ms of one call: CUDA events on the card, the host's clock
+    where a rehearsal runs on the CPU."""
+    if dev.type == "cuda":
+        from uavdet_tpu_torch.utils.timing import cuda_ms
+        return cuda_ms(fn, iters, warmup)
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def md_sync(dev, peak_reset: bool = False) -> float:
+    """Wait for the card (and reset its peak memory); -> the peak GiB since
+    the last reset (0 on the CPU)."""
+    import torch
+    if dev.type != "cuda":
+        return 0.0
+    torch.cuda.synchronize(dev)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    if peak_reset:
+        torch.cuda.reset_peak_memory_stats(dev)
+    return peak
+
+
+def md_cfg6(hp, size, dev, mesh, batches, fsdp=None, iters=MD_ITERS,
+            warmup=MD_WARMUP) -> dict:
+    """cfg6 (``hp``: full-width DyYOLO; 640 px, grad_batches 2, bf16
+    autocast) placed on ``mesh`` over ``batches`` (this rank's rows): the
+    losses of the first updates, the launches, ms per microbatch (the
+    median over updates, halved) and the peak device memory."""
+    import torch
+    from uavdet_tpu_torch import kernels
+    from uavdet_tpu_torch.parallel import shard_model
+    from uavdet_tpu_torch.training import (build_optimizer, init_state,
+                                           make_train_step)
+    from uavdet_tpu_torch.utils.seeding import seeded_model
+    model = seeded_model("DyYOLO", hp, SEED, dev, dtype=torch.float32)
+    placed = shard_model(model, mesh, fsdp)
+    state = init_state(placed, *build_optimizer(placed.parameters(), hp))
+    step = make_train_step(placed, hp, size, compute_dtype=torch.bfloat16,
+                           grad_batches=TRAIN_GRAD_BATCHES, mesh=mesh)
+    md_sync(dev, peak_reset=True)
+    kernels.reset_launch_counts()
+    losses = [float(step(state, b)["loss"]) for b in batches]
+    md_sync(dev)
+    counts = kernels.launch_counts()
+
+    def update_pair():
+        for b in batches[:2]:
+            step(state, b)
+
+    ms = md_ms(update_pair, dev, iters // 2, warmup // 2) / 2
+    out = {"losses": losses, "counts": counts, "ms_per_microbatch": ms,
+           "rows": len(batches[0].image), "step": state.step,
+           "peak_gib": md_sync(dev)}
+    del model, placed, state, step
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def md_bn_cost(hp, size, dev, mesh, batches) -> dict:
+    """cfg6 DDP on ``mesh`` (one rank) with every BatchNorm on its own path
+    and through ``parallel.global_batch_norm`` (the eager float64 moments,
+    its autograd Function and two all-reduces of one rank), in turns: ms per
+    microbatch, the median over updates, halved."""
+    import torch
+    from uavdet_tpu_torch.models import layers
+    from uavdet_tpu_torch.parallel import global_batch_norm, shard_model
+    from uavdet_tpu_torch.training import (build_optimizer, init_state,
+                                           make_train_step)
+    from uavdet_tpu_torch.utils.seeding import seeded_model
+    model = seeded_model("DyYOLO", hp, SEED, dev, dtype=torch.float32)
+    placed = shard_model(model, mesh, False)
+    state = init_state(placed, *build_optimizer(placed.parameters(), hp))
+    step = make_train_step(placed, hp, size, compute_dtype=torch.bfloat16,
+                           grad_batches=TRAIN_GRAD_BATCHES, mesh=mesh)
+    own = layers.BatchNorm2d.forward
+
+    def global_forward(self, x):
+        if self.training:
+            return global_batch_norm(x, self)
+        return own(self, x)
+
+    def update_pair():
+        for b in batches[:2]:
+            step(state, b)
+
+    out = {"own": [], "global_batch_norm": []}
+    try:
+        for which in ("own", "global_batch_norm", "global_batch_norm",
+                      "own"):
+            layers.BatchNorm2d.forward = (own if which == "own"
+                                          else global_forward)
+            out[which].append(md_ms(update_pair, dev, MD_ITERS // 2,
+                                    MD_WARMUP // 2) / 2)
+    finally:
+        layers.BatchNorm2d.forward = own
+    del model, placed, state, step
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def md_bn_layer(dev, group) -> dict:
+    """One BatchNorm's forward and backward (bf16 autocast, channels_last)
+    at cfg6's largest and smallest-plane inputs: the port's own path,
+    ``global_batch_norm``, and PyTorch's ``SyncBatchNorm`` autograd Function
+    (the library's synced BatchNorm, timed here only), both on the
+    one-rank ``group``, in turns: the host's ms to queue one call with the
+    card kept busy, and the wall ms per call, over MD_BN_CALLS calls."""
+    import torch
+    from torch.nn.modules._functions import SyncBatchNorm
+    from uavdet_tpu_torch.models import layers
+    from uavdet_tpu_torch.parallel import global_batch_norm
+    out = {}
+    for shape in ((TRAIN_BATCH, 32, SIZE, SIZE),
+                  (TRAIN_BATCH, 512, SIZE // 32, SIZE // 32)):
+        c = shape[1]
+        x = torch.randn(shape, device=dev, dtype=torch.bfloat16).contiguous(
+            memory_format=torch.channels_last).requires_grad_()
+        dy = torch.randn_like(x)
+        own = layers.BatchNorm2d(c).to(dev)
+        ours = layers.BatchNorm2d(c).to(dev)
+        ours.process_group = group
+        ref = torch.nn.BatchNorm2d(c).to(dev)
+        ways = {"own": lambda: own(x),
+                "global_batch_norm": lambda: global_batch_norm(x, ours),
+                "SyncBatchNorm": lambda: SyncBatchNorm.apply(
+                    x, ref.weight, ref.bias, ref.running_mean,
+                    ref.running_var, ref.eps, ref.momentum, group, 1)}
+        times = {k: {"host_ms": [], "wall_ms": []} for k in ways}
+        for name in (*ways, *reversed(ways)):
+            def call():
+                with torch.autocast(dev.type, torch.bfloat16):
+                    y = ways[name]()
+                y.backward(dy)
+            for _ in range(5):
+                call()
+            md_sync(dev)
+            t0 = time.perf_counter()
+            for _ in range(MD_BN_CALLS):
+                call()
+            t1 = time.perf_counter()
+            md_sync(dev)
+            t2 = time.perf_counter()
+            times[name]["host_ms"].append((t1 - t0) * 1e3 / MD_BN_CALLS)
+            times[name]["wall_ms"].append((t2 - t0) * 1e3 / MD_BN_CALLS)
+        out["x".join(map(str, shape))] = times
+    return out
+
+
+def md_rank_job(spec: dict) -> dict:
+    """One of the two ranks of phase 7o (b), sharing the card over gloo:
+    the float32 DDP step, cfg6 DDP, the sharded detect and Trainer.fit with
+    multihost over 7j's tree (run in its working directory)."""
+    import torch
+    import torch.distributed as dist
+    from uavdet_tpu_torch import kernels
+    from uavdet_tpu_torch.inference import make_detector
+    from uavdet_tpu_torch.parallel import (local_batch_rows, local_device,
+                                           make_mesh, shard_host_batch)
+    from uavdet_tpu_torch.train import build_pipelines
+    from uavdet_tpu_torch.training import MetricsWriter, Trainer
+    from uavdet_tpu_torch.utils.config import Config
+    from uavdet_tpu_torch.utils.seeding import seeded_model
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = local_device(spec["device"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    mesh = make_mesh(MD_RANKS, 1, dev.type)
+    rank = dist.get_rank()
+    out = {"rank": rank, "device": str(dev), "backend": dist.get_backend()}
+    out["f32_losses"] = md_f32_losses(spec["tiny_hp"], spec["parity"], dev,
+                                      mesh)
+
+    hp, size, batch = spec["hp"], spec["size"], spec["train_batch"]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    rows = local_batch_rows(mesh, batch)
+    batches = [shard_host_batch(painted_batch(gen, dev, batch, size), rows)
+               for _ in range(4)]
+    out["cfg6"] = md_cfg6(hp, size, dev, mesh, batches)
+
+    model = seeded_model("DyYOLO", hp, SEED, dev)
+    detect = make_detector(model, hp, size, mesh=mesh)
+    gen = torch.Generator(device=dev).manual_seed(MD_FRAMES_SEED)
+    frames = torch.randint(0, 256, (spec["detect_batch"], size, size, 3),
+                           dtype=torch.uint8, device=dev, generator=gen)
+    detect(frames)
+    md_sync(dev)
+    kernels.reset_launch_counts()
+    results = [detect(frames) for _ in range(REQUESTS)]
+    md_sync(dev)
+    out["detect_counts"] = kernels.launch_counts()
+    out["detect"] = [t.cpu() for t in results[0]]
+    out["detect_ms"] = md_ms(lambda: detect(frames), dev, 10, 2)
+    del model, detect, results
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    cfg = Config(spec["trainer_config"])
+    train_pipe, val_pipe = build_pipelines(cfg, dev)
+    reads = []
+    read = train_pipe._read
+
+    def counted(path):
+        reads.append(path)
+        return read(path)
+
+    train_pipe._read = counted
+    trainer = Trainer(cfg, train_pipe, val_pipe,
+                      metrics=MetricsWriter(f"dvclive_md{rank}"), device=dev)
+    kernels.reset_launch_counts()
+    final = trainer.fit()
+    md_sync(dev)
+    out["fit"] = {"final": {k: v for k, v in final.items()
+                            if isinstance(v, float)},
+                  "counts": kernels.launch_counts(), "reads": reads,
+                  "local_rows": sorted(train_pipe.local_rows or ()),
+                  "step": trainer.state.step}
+    return out
+
+
+def md_fsdp_job(spec: dict) -> list:
+    """The float32 FSDP2 step of the tiny DyYOLO on the two ranks."""
+    import torch
+    from uavdet_tpu_torch.parallel import local_device, make_mesh
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = local_device(spec["device"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    return md_f32_losses(spec["tiny_hp"], spec["parity"], dev,
+                         make_mesh(1, MD_RANKS, dev.type))
+
+
+class _Recorder:
+    """An executor for ``DataPipeline._plan_local`` that records the paths
+    it is asked to decode, in batch-row order, and decodes none (the
+    headers it reads)."""
+
+    def __init__(self):
+        self.paths = []
+
+    def submit(self, fn, path, *args):
+        from concurrent.futures import Future
+        f = Future()
+        if fn.__name__ == "_load":
+            self.paths.append(path)
+            f.set_result(None)
+        else:
+            f.set_result(fn(path, *args))
+        return f
+
+
+class MultiDevice:
+    """Phase 7o: (a) the DDP and FSDP2 steps in a one-process NCCL group,
+    against the single-device step; (b) two processes sharing the card over
+    gloo: the float32 DDP step (and FSDP2 where gloo carries its collectives
+    on CUDA tensors) against one process, cfg6 DDP, the sharded detect
+    against the one-process detect, ``Trainer.fit`` with ``devices: 2`` and
+    ``multihost: true`` over 7j's tree; (c) the times, as one
+    ``{"multi_device": ...}`` line."""
+
+    def __init__(self, smoke, dev, tag, tiny_hp, hp, size=SIZE,
+                 train_batch=TRAIN_BATCH, detect_batch=BATCH):
+        self.smoke, self.dev, self.tag, self.tiny_hp = smoke, dev, tag, \
+            tiny_hp
+        self.hp, self.size = hp, size
+        self.train_batch, self.detect_batch = train_batch, detect_batch
+        self.report = {"card_sharing": "two ranks sharing one card (gloo); "
+                       "not a scaling number"}
+        self._single = None
+
+    @property
+    def single(self):
+        """The float32 losses of the single-device step on the card."""
+        if self._single is None:
+            self._single = md_f32_losses(self.tiny_hp, self.parity_batches(),
+                                         self.dev)
+        return self._single
+
+    def parity_batches(self):
+        import torch
+        gen = torch.Generator().manual_seed(SEED + 2)
+        out = []
+        for _ in range(PARITY_MICRO):
+            b = painted_batch(gen, "cpu", MD_PARITY_BATCH, PARITY_SIZE, 2)
+            out.append(b._replace(image=torch.rand(b.image.shape,
+                                                   generator=gen)))
+        return out
+
+    def one_process(self, train_batches, single_step):
+        """(a) ``train_batches``: 7f's cfg6 batches; ``single_step``: 7f's
+        (state, step), timed beside the placed steps."""
+        import os
+        import tempfile
+        import torch
+        import torch.distributed as dist
+        from uavdet_tpu_torch.parallel import backend_for, make_mesh
+        smoke, dev = self.smoke, self.dev
+        parity = self.parity_batches()
+        state, step = single_step
+
+        def single_pair():
+            for b in train_batches[:2]:
+                step(state, b)
+
+        md_sync(dev, peak_reset=True)
+        single_ms = md_ms(single_pair, dev, MD_ITERS // 2,
+                          MD_WARMUP // 2) / 2
+        readings = {"single_device_ms_per_microbatch": single_ms}
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_md_")
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        dist.init_process_group(
+            backend_for(dev, 1),
+            store=dist.FileStore(os.path.join(tmp, "store"), 1), rank=0,
+            world_size=1)
+        try:
+            mesh = make_mesh(1, 1, dev.type)
+            for name, fsdp in (("ddp", False), ("fsdp2", True)):
+                got = md_f32_losses(self.tiny_hp, parity, dev, mesh, fsdp)
+                rel = float(np.max(np.abs(np.subtract(got, self.single))
+                                   / np.abs(self.single)))
+                smoke.check(f"one-process NCCL {name} float32 step vs "
+                            "single device", rel < MD_ONE_RTOL,
+                            f"losses {got} vs {self.single}, relative "
+                            f"{rel:.3g} (rtol {MD_ONE_RTOL})")
+                r = md_cfg6(self.hp, self.size, dev, mesh,
+                            train_batches[:4], fsdp)
+                count_launches(smoke, None, "DyYOLO train step, placed on a "
+                               "mesh", 4, counts=r["counts"])
+                smoke.check(f"one-process NCCL {name} cfg6 bf16 losses "
+                            "finite", bool(np.isfinite(r["losses"]).all())
+                            and r["step"] > 0, f"{r['losses']}")
+                readings[f"nccl_one_process_{name}"] = {
+                    k: r[k] for k in ("ms_per_microbatch", "peak_gib",
+                                      "losses")}
+                print(f"cfg6 {name} in a one-process NCCL group: "
+                      f"{r['ms_per_microbatch']:.3f} ms/microbatch "
+                      f"(single device {single_ms:.3f}), peak "
+                      f"{r['peak_gib']:.2f} GiB {self.tag}")
+            bn = md_bn_cost(self.hp, self.size, dev, mesh, train_batches[:2])
+            readings["cfg6_ddp_batch_norm_ms_per_microbatch"] = bn
+            print("cfg6 DDP in a one-process NCCL group, ms/microbatch in "
+                  f"turns: BatchNorm's own path {bn['own']}, through "
+                  f"global_batch_norm {bn['global_batch_norm']} {self.tag}")
+            layer = md_bn_layer(dev, dist.group.WORLD)
+            readings["batch_norm_layer_ms"] = layer
+            print("one BatchNorm forward + backward in a one-process NCCL "
+                  f"group (host ms to queue, wall ms): {json.dumps(layer)} "
+                  f"{self.tag}")
+        finally:
+            dist.destroy_process_group()
+        self.report["one_process"] = readings
+
+    def local_rows_pipeline(self, recs, order, seed):
+        """The train pipeline through ``set_local_rows`` on the card: with
+        every row, bitwise the plain pipeline; with rank 0's rows, it
+        decodes those rows' files alone; batches/s of rank 0's rows beside
+        the plain pipeline's, in turns (the headers of every frame are read
+        on both sides of a rank's step)."""
+        import torch
+        from uavdet_tpu_torch.data import DataPipeline
+        smoke, dev, tb = self.smoke, self.dev, self.train_batch
+        rows0 = set(range(tb // MD_RANKS))
+
+        def pipe(rows):
+            p = DataPipeline(recs, self.size, tb, train=True, seed=seed,
+                             workers=DATA_WORKERS, device=dev)
+            if rows is not None:
+                p.set_local_rows(rows)
+            return p
+
+        plain, local = list(pipe(None)), list(pipe(range(tb)))
+        smoke.check("set_local_rows with every row: the plain pipeline, "
+                    "bitwise", len(plain) == len(local) > 0 and all(
+                        all(torch.equal(a, b) for a, b in zip(p, q))
+                        for p, q in zip(plain, local)),
+                    f"{len(local)} / {len(plain)} batches of {tb}")
+        p0 = pipe(rows0)
+        reads = []
+        read = p0._read
+        p0._read = lambda path: (reads.append(path), read(path))[1]
+        got = list(p0)
+        mine = [q for i, q in enumerate(order) if i % tb in rows0]
+        smoke.check("set_local_rows of rank 0's rows: its rows of the plain "
+                    "pipeline, its rows' files alone",
+                    sorted(reads) == sorted(mine) and all(
+                        all(torch.equal(a, b[:len(rows0)])
+                            for a, b in zip(g, p))
+                        for g, p in zip(got, plain)),
+                    f"{len(reads)} files read, {len(mine)} in its rows")
+
+        def batches_per_s(rows):
+            p = pipe(rows)
+            list(p)
+            md_sync(dev)
+            t0, n = time.perf_counter(), 0
+            for _ in range(DATA_EPOCHS):
+                n += sum(1 for _ in p)
+            md_sync(dev)
+            return n / (time.perf_counter() - t0)
+
+        bps = {"plain": [], "rank0_rows": []}
+        for which in ("plain", "rank0_rows", "rank0_rows", "plain"):
+            bps[which].append(batches_per_s(rows0 if which == "rank0_rows"
+                                            else None))
+        self.report["train_pipeline_batches_per_s"] = bps
+        print(f"train pipeline alone, batch {tb}, {DATA_WORKERS} workers, "
+              "batches/s in turns: plain "
+              f"{[round(v, 1) for v in bps['plain']]}, rank 0's rows "
+              f"{[round(v, 1) for v in bps['rank0_rows']]} {self.tag}")
+
+    def two_ranks(self, data_config, detect, frames_of):
+        """(b) and (c), in 7j's working directory (the current one)."""
+        import torch
+        from uavdet_tpu_torch.data import DataPipeline, load_manifest
+        from uavdet_tpu_torch.parallel.dryrun import launch
+        from uavdet_tpu_torch.training import MetricsWriter, Trainer
+        from uavdet_tpu_torch.utils.config import Config
+        smoke, dev = self.smoke, self.dev
+        parity = self.parity_batches()
+        cfg = data_config().to_dict()
+        cfg["train"]["trainer"].update(
+            devices=MD_RANKS, multihost=True, train_batches=MD_TRAIN_BATCHES,
+            val_batches=1)
+        cfg["train"]["checkpoint"]["dir"] = "logs/checkpoints_md"
+        spec = {"tiny_hp": self.tiny_hp, "parity": parity,
+                "trainer_config": cfg, "device": dev.type, "hp": self.hp,
+                "size": self.size, "train_batch": self.train_batch,
+                "detect_batch": self.detect_batch}
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = launch("chip_smoke:md_rank_job", MD_RANKS, args=(spec,),
+                       device=dev.type, timeout=MD_TIMEOUT)
+        seconds = time.perf_counter() - t0
+        print(f"two ranks on one card ({ranks[0]['backend']}, devices "
+              f"{[r['device'] for r in ranks]}): {seconds:.1f} s")
+        for r in ranks:
+            rel = float(np.max(np.abs(np.subtract(r["f32_losses"],
+                                                  self.single))
+                               / np.abs(self.single)))
+            smoke.check(f"two-rank DDP float32 step vs one process, rank "
+                        f"{r['rank']}", rel < PARITY_RTOL,
+                        f"losses {r['f32_losses']} vs {self.single}, "
+                        f"relative {rel:.3g} (rtol {PARITY_RTOL})")
+            c6 = r["cfg6"]
+            count_launches(smoke, None, "DyYOLO train step, placed on a mesh",
+                           4, counts=c6["counts"])
+            smoke.check(f"two-rank DDP cfg6 bf16 losses finite, rank "
+                        f"{r['rank']}", bool(np.isfinite(c6["losses"]).all())
+                        and c6["rows"] == self.train_batch // MD_RANKS,
+                        f"{c6['losses']} over {c6['rows']} rows a rank")
+            count_launches(smoke, None,
+                           f"DyYOLO sharded detect, rank {r['rank']}",
+                           REQUESTS, counts=r["detect_counts"])
+
+        # the sharded detect against the one-process detect
+        frames = frames_of(MD_FRAMES_SEED)
+        want = detect(frames)
+        from uavdet_tpu_torch.utils.datatypes import Detections
+        bitwise = []
+        for r in ranks:
+            got = Detections(*(t.to(dev) for t in r["detect"]))
+            compare_detections(smoke, got, want,
+                               name=f"sharded detect vs one process, rank "
+                                    f"{r['rank']}")
+            bitwise.append(all(torch.equal(a, b) for a, b in zip(got, want)))
+        one_ms = md_ms(lambda: detect(frames), dev, 10, 2)
+        print(f"sharded detect of {self.detect_batch} frames over "
+              f"{MD_RANKS} ranks sharing the card: bitwise equal to one "
+              f"process: {bitwise}; "
+              f"{[r['detect_ms'] for r in ranks]} ms per request (one "
+              f"process {one_ms:.3f} ms) {self.tag}")
+
+        # Trainer.fit with multihost: rows, reads, checkpoint
+        recs = load_manifest(cfg["dataset"]["train_loader_path"])
+        seed = int(cfg["train"]["seed"] or 11)
+        pipe = DataPipeline(recs, self.size, self.train_batch, train=True,
+                            seed=seed, workers=DATA_WORKERS, device=dev)
+        pipe.set_local_rows(range(self.train_batch))
+        rec = _Recorder()
+        for _ in pipe._plan_local(rec):
+            pass
+        order = rec.paths
+        for r in ranks:
+            fit = r["fit"]
+            rows = set(fit["local_rows"])
+            tb = self.train_batch
+            mine = {p for i, p in enumerate(order) if i % tb in rows}
+            trained = {p for i, p in enumerate(order[:MD_TRAIN_BATCHES * tb])
+                       if i % tb in rows}
+            smoke.check(f"Trainer.fit multihost rank {r['rank']} decoded "
+                        "only its rows",
+                        len(rows) == tb // MD_RANKS
+                        and set(fit["reads"]) <= mine
+                        and trained <= set(fit["reads"]),
+                        f"rows {sorted(rows)}, {len(fit['reads'])} files "
+                        f"read, {len(set(fit['reads']) - mine)} outside its "
+                        f"rows, of {len(order)} kept samples")
+            smoke.check(f"Trainer.fit multihost rank {r['rank']} losses "
+                        "finite", all(np.isfinite(v) for v in
+                                      fit["final"].values())
+                        and fit["step"] == MD_TRAIN_BATCHES
+                        // TRAIN_GRAD_BATCHES, f"{fit['final']}")
+            count_launches(smoke, None, f"Trainer.fit multihost, rank "
+                           f"{r['rank']}", 1, counts=fit["counts"])
+        self.local_rows_pipeline(recs, order, seed)
+        one_cfg = Config(dict(cfg, train=dict(cfg["train"], trainer=dict(
+            cfg["train"]["trainer"], devices=1, multihost=False))))
+        t = Trainer(one_cfg, BatchList([]), BatchList([]),
+                    metrics=MetricsWriter("dvclive_md_restore"), device=dev)
+        import os
+        names = sorted(os.listdir("logs/checkpoints_md"))
+        t.ckpt.restore(t.state, "last")
+        smoke.check("Trainer.fit multihost checkpoint restores in one "
+                    "process", t.state.step == MD_TRAIN_BATCHES
+                    // TRAIN_GRAD_BATCHES and all(
+                        bool(torch.isfinite(p).all())
+                        for p in t.model.parameters())
+                    and not os.path.exists("dvclive_md1/metrics.json"),
+                    f"{names}, step {t.state.step}")
+        del t
+
+        # FSDP2 over the two processes (gloo carries its collectives on
+        # CUDA tensors); any failure of a rank fails the phase
+        fsdp = launch("chip_smoke:md_fsdp_job", MD_RANKS, args=(spec,),
+                      device=dev.type, timeout=MD_TIMEOUT)
+        for rank, got in enumerate(fsdp):
+            rel = float(np.max(np.abs(np.subtract(got, self.single))
+                               / np.abs(self.single)))
+            smoke.check(f"two-rank FSDP2 float32 step vs one process, "
+                        f"rank {rank}", rel < PARITY_RTOL,
+                        f"losses {got}, relative {rel:.3g} (rtol "
+                        f"{PARITY_RTOL})")
+
+        self.report["two_ranks"] = {
+            "backend": ranks[0]["backend"], "seconds": seconds,
+            "ms_per_microbatch": [r["cfg6"]["ms_per_microbatch"]
+                                  for r in ranks],
+            "rows_per_rank": self.train_batch // MD_RANKS,
+            "peak_gib": [r["cfg6"]["peak_gib"] for r in ranks],
+            "detect_ms": [r["detect_ms"] for r in ranks],
+            "one_process_detect_ms": one_ms, "detect_bitwise": bitwise,
+            "fit": [r["fit"]["final"] for r in ranks]}
+        print(json.dumps({"multi_device": self.report}))
 
 
 def main() -> int:
@@ -2444,6 +3067,30 @@ def main() -> int:
     smoke.phase("7n mosaic path", rtm.mosaic,
                 os.path.join(workdir, "data_path"), data_config, HostFrames,
                 pipeline_fps)
+
+    md = MultiDevice(smoke, dev, tag, tiny_hp, DYYOLO)
+
+    def md_one_process():
+        _, state_t, step_t, batches_t = inputs["train"]
+        md.one_process(batches_t, (state_t, step_t))
+
+    def md_two_ranks():
+        def frames_of(seed):
+            g = torch.Generator(device=dev).manual_seed(seed)
+            return torch.randint(0, 256, (BATCH, SIZE, SIZE, 3),
+                                 dtype=torch.uint8, device=dev, generator=g)
+
+        here = os.getcwd()
+        os.chdir(os.path.join(workdir, "data_path"))   # 7j's tree
+        try:
+            md.two_ranks(data_config, detect, frames_of)
+        finally:
+            os.chdir(here)
+
+    smoke.phase("7o multi-device (a): DDP and FSDP2 in a one-process NCCL "
+                "group", md_one_process)
+    smoke.phase("7o multi-device (b, c): two processes sharing the card "
+                "over gloo", md_two_ranks)
 
     def time_pair(name, kern, plain, lib, iters=ITERS, warmup=WARMUP,
                   plain_iters=ITERS, plain_warmup=WARMUP):

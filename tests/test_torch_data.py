@@ -16,8 +16,9 @@ package's ``uavdet_tpu/data/``, on the CPU.
   holds nvJPEG's decode against (PIL's own files and decodes, the JAX
   writer's bytes), and the pipeline's failures: an unreadable file raises from ``__iter__``, a CUDA
   pipeline on a host without a card raises (no fallback),
-  ``set_local_rows`` raises (``mosaic=True`` is ported: see
-  tests/test_torch_mosaic.py).
+  ``set_local_rows`` returns True, or False for a remote ``fs``
+  (``mosaic=True`` and the sharded decode are ported: see
+  tests/test_torch_mosaic.py and tests/test_torch_multihost.py).
 """
 
 import filecmp
@@ -336,12 +337,14 @@ def test_early_stop_ends_the_producer(records):
 
 
 def test_not_ported_options_raise(records):
-    # the mosaic path is ported now; the multi-host decode is not
+    # the mosaic path and the multi-host decode are ported now
+    # (tests/test_torch_mosaic.py, tests/test_torch_multihost.py)
     assert DataPipeline(records, SIZE, 2, train=True, mosaic=True,
                         device="cpu").mosaic
-    with pytest.raises(NotImplementedError, match="multi-host"):
-        DataPipeline(records, SIZE, 2, train=True,
-                     device="cpu").set_local_rows([0])
+    pipe = DataPipeline(records, SIZE, 2, train=True, device="cpu")
+    assert pipe.set_local_rows([0]) is True and pipe.local_rows == {0}
+    assert DataPipeline(records, SIZE, 2, train=True, fs=object(),
+                        device="cpu").set_local_rows([0]) is False
     with pytest.raises(ValueError, match="format"):
         DataPipeline(records, SIZE, 2, train=True, fmt="coco", device="cpu")
 

@@ -102,6 +102,29 @@ def decode_cpu(data: bytes) -> torch.Tensor:
         return torch.from_numpy(np.array(im.convert("RGB")))
 
 
+def image_size(path: str, device) -> tuple:
+    """(height, width) of a local image file from its header alone, no
+    pixel decoded: PIL's ``Image.open(...).size`` for the CPU, nvJPEG's
+    ``nvjpegGetImageInfo`` of the file's first 4 KiB for the card (of all
+    of it where the frame header lies further in, behind large EXIF or ICC
+    segments)."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        from .jpeg import codec
+        with open(path, "rb") as f:
+            head = f.read(1 << 12)
+            try:
+                sizes = codec().info(head)[1]
+            except RuntimeError:
+                sizes = []
+            if not sizes or 0 in sizes[0]:
+                sizes = codec().info(head + f.read())[1]
+            return tuple(sizes[0])
+    from PIL import Image
+    with Image.open(path) as im:
+        return im.height, im.width
+
+
 def decode(datas: Sequence[bytes], device) -> List[torch.Tensor]:
     """JPEG bytes -> (H, W, 3) uint8 RGB tensors on ``device``: PIL for the
     CPU, nvJPEG on the card's current stream (with libjpeg's chroma

@@ -43,9 +43,17 @@ in [0, 1]), so ``Trainer._to_device`` copies nothing. An error in the
 producer (a read, a decode, a build of the nvJPEG library) is raised by
 ``__iter__``.
 
-Not ported: the multi-host sharded decode (``set_local_rows`` raises; it
-comes with multi-device training); the JAX package's native C++ loader has
-no counterpart (nvJPEG and the device resize do its job on the card).
+The sharded decode (``set_local_rows(rows)``, multi-device training): the
+host replays the whole global stream from each frame's header alone
+(``frames.image_size``: PIL's on the CPU, nvJPEG's on the card), so
+membership, boxes, the affines and the mosaic layouts are decided exactly
+as above; then only the files of the batch rows in ``rows`` are read and
+decoded, and each batch holds those rows alone, with their boxes and masks
+(where the JAX package zero-fills the other rows for
+``jax.make_array_from_callback``; a DDP rank does not need them). A remote
+``fs`` returns False and decodes everything, as in the JAX package. The JAX
+package's native C++ loader has no counterpart (nvJPEG and the device
+resize do its job on the card).
 """
 
 import collections
@@ -112,12 +120,20 @@ class DataPipeline:
         self.workers = max(1, int(workers))
         self.fmt = fmt
         self._epoch = 0
+        # the batch rows whose pixels this process decodes; None: all
+        self.local_rows = None
 
     def set_local_rows(self, rows) -> bool:
-        raise NotImplementedError(
-            "set_local_rows: the multi-host sharded decode is not ported to "
-            "uavdet_tpu_torch; it comes with multi-device training "
-            "(ROADMAP.md queue 1 item 8)")
+        """Decode and yield only the batch rows ``rows`` (a process's rows,
+        ``parallel.local_batch_rows``); membership stays the global
+        stream's, replayed from the headers. -> False (and everything
+        decoded) for a remote ``fs``, whose headers cannot be read without
+        fetching the objects."""
+        if self.fs is not None:
+            self.local_rows = None
+            return False
+        self.local_rows = frozenset(int(r) for r in rows)
+        return True
 
     def __len__(self):
         n = len(self.records) // self.batch_size
@@ -143,10 +159,11 @@ class DataPipeline:
         with torch.cuda.device(self.device), torch.cuda.stream(stream):
             return frames.decode([data], self.device)[0]
 
-    def _samples(self, ex, groups, stream) -> Iterator[list]:
-        """The decoded frames of each group of record indices in ``groups``,
-        in order, the reads and decodes running ahead in the pool by a
-        bounded window of groups."""
+    def _ahead(self, ex, groups, fn, *args) -> Iterator[list]:
+        """``fn(path, *args)`` of each record of each group of record
+        indices in ``groups`` (a decoded frame, a header's size), in order,
+        the calls running ahead in the pool by a bounded window of
+        groups."""
         ahead = max(self.batch_size * 4, self.workers * 4)
         pending = collections.deque()
         it = iter(groups)
@@ -156,7 +173,7 @@ class DataPipeline:
                 if group is None:
                     break
                 pending.append([ex.submit(
-                    self._load, self.records[i]["img_path"], stream)
+                    fn, self.records[i]["img_path"], *args)
                     for i in group])
             if not pending:
                 return
@@ -173,11 +190,9 @@ class DataPipeline:
             draws.append((idx, frames.affine_matrix(r, self.input_size)))
         return draws
 
-    def _plan(self, ex, stream=None) -> Iterator[list]:
-        """One epoch's batches: lists of (decoded frame, or in mosaic mode
-        the four decoded sources and their layout; float32 boxes; affine
-        matrix or None) of the samples that keep a box; the boxes and
-        membership from the host alone."""
+    def _order(self) -> tuple:
+        """The epoch's RNG, its order of the records, and with ``workers``
+        above 1 one RNG per position (None otherwise)."""
         rng = np.random.default_rng(self.seed + self._epoch)
         order = (rng.permutation(len(self.records)) if self.shuffle
                  else np.arange(len(self.records)))
@@ -185,38 +200,107 @@ class DataPipeline:
         if self.workers > 1:
             rngs = [np.random.default_rng(s) for s in np.random.SeedSequence(
                 [self.seed, self._epoch]).spawn(len(order))]
+        return rng, order, rngs
+
+    def _sources(self, pos, order, draws) -> list:
+        """The record indices position ``pos`` reads: its own, or in mosaic
+        mode its four drawn sources."""
+        return ([int(j) for j in draws[pos][0]] if self.mosaic
+                else [int(order[pos])])
+
+    def _geometry(self, pos, sources, sizes, draws, rng, rngs) -> tuple:
+        """Position ``pos``'s (float32 boxes, affine matrix or None, mosaic
+        layout or None) from the (height, width) ``sizes`` of its
+        ``sources``: the host's part of the sample, as the JAX package
+        computes it."""
         s = self.input_size
         if self.mosaic:
-            draws = self._mosaic_draws(order, rng, rngs)
-            groups = [list(idx) for idx, _ in draws]
-        else:
-            groups = ([i] for i in order)
+            layout = mosaic_layout(
+                sizes, [self.records[j]["bbox"] for j in sources], (s, s))
+            placed = np.asarray([b for *_, b in layout],
+                                np.float32).reshape(-1, 4)
+            boxes, mat = frames.box_path(placed, s, s, s, True,
+                                         mat=draws[pos][1])
+            return boxes, mat, layout
+        (h, w), = sizes
+        boxes, mat = frames.box_path(
+            np.asarray([self.records[sources[0]]["bbox"]], np.float32), w, h,
+            s, self.train, rngs[pos] if rngs is not None else rng)
+        return boxes, mat, None
+
+    def _plan(self, ex, stream=None) -> Iterator[list]:
+        """One epoch's batches: lists of (decoded frame, or in mosaic mode
+        the four decoded sources and their layout; float32 boxes; affine
+        matrix or None) of the samples that keep a box; the boxes and
+        membership from the host alone."""
+        rng, order, rngs = self._order()
+        draws = self._mosaic_draws(order, rng, rngs) if self.mosaic else None
+        groups = [self._sources(pos, order, draws)
+                  for pos in range(len(order))]
         kept = []
-        for pos, loaded in enumerate(self._samples(ex, groups, stream)):
-            if self.mosaic:
-                idx, mat = draws[pos]
-                layout = mosaic_layout(
-                    [tuple(f.shape[:2]) for f in loaded],
-                    [self.records[j]["bbox"] for j in idx], (s, s))
-                placed = np.asarray([b for *_, b in layout],
-                                    np.float32).reshape(-1, 4)
-                boxes, mat = frames.box_path(placed, s, s, s, True, mat=mat)
-                pixels = (loaded, layout)
-            else:
-                i, pixels = order[pos], loaded[0]
-                h, w = pixels.shape[:2]
-                boxes, mat = frames.box_path(
-                    np.asarray([self.records[i]["bbox"]], np.float32), w, h,
-                    s, self.train, rngs[pos] if rngs is not None else rng)
+        for pos, loaded in enumerate(self._ahead(ex, groups, self._load,
+                                                     stream)):
+            boxes, mat, layout = self._geometry(
+                pos, groups[pos], [tuple(f.shape[:2]) for f in loaded],
+                draws, rng, rngs)
             if len(boxes) == 0:
                 continue  # drop-empty (collate parity, both reference fns)
-            kept.append((pixels, boxes, mat))
+            kept.append(((loaded, layout) if self.mosaic else loaded[0],
+                         boxes, mat))
             if len(kept) == self.batch_size:
                 yield kept
                 kept = []
         if kept and not self.drop_last:
             yield kept
         self._epoch += 1
+
+    def _plan_local(self, ex, stream=None) -> Iterator[list]:
+        """``_plan`` for ``local_rows``: each position's boxes and draws
+        from its header's size (its four sources' in mosaic mode), the
+        headers read in the pool a window of positions ahead, in the same
+        order; of each batch only the rows in ``local_rows`` read and
+        decoded in the pool, a window of batches ahead."""
+        rng, order, rngs = self._order()
+        draws = self._mosaic_draws(order, rng, rngs) if self.mosaic else None
+        groups = [self._sources(pos, order, draws)
+                  for pos in range(len(order))]
+        pending = collections.deque()
+
+        def submit(kept):
+            rows = [r for r in range(len(kept)) if r in self.local_rows]
+            pending.append([(
+                [ex.submit(self._load, self.records[j]["img_path"], stream)
+                 for j in kept[r][0]], kept[r]) for r in rows])
+
+        def resolved():
+            out = []
+            for futs, (_, layout, boxes, mat) in pending.popleft():
+                loaded = [f.result() for f in futs]
+                out.append(((loaded, layout) if self.mosaic else loaded[0],
+                            boxes, mat))
+            return out
+
+        kept = []
+        for pos, sizes in enumerate(self._ahead(ex, groups, self._size)):
+            boxes, mat, layout = self._geometry(pos, groups[pos], sizes,
+                                                draws, rng, rngs)
+            if len(boxes) == 0:
+                continue  # drop-empty, the same decision on every process
+            kept.append((groups[pos], layout, boxes, mat))
+            if len(kept) == self.batch_size:
+                submit(kept)
+                kept = []
+                if len(pending) > self.prefetch:
+                    yield resolved()
+        if kept and not self.drop_last:
+            submit(kept)
+        while pending:
+            yield resolved()
+        self._epoch += 1
+
+    def _size(self, path: str) -> tuple:
+        """(height, width) of a local frame from its header alone."""
+        return frames.image_size(path, self.device)
 
     def _collate_boxes(self, boxes_list) -> tuple:
         b = len(boxes_list)
@@ -245,6 +329,12 @@ class DataPipeline:
         producer's side stream), and
         the boxes and masks, staged in pinned memory there."""
         s = self.input_size
+        if not kept:   # a process without rows in this batch
+            return BatchData(
+                image=torch.zeros((0, s, s, 3), device=self.device),
+                boxes=torch.zeros((0, self.max_boxes, 4), device=self.device),
+                box_mask=torch.zeros((0, self.max_boxes), dtype=torch.bool,
+                                     device=self.device))
         pixels = ([mosaic_canvas(*k[0], (s, s)) for k in kept]
                   if self.mosaic else [k[0] for k in kept])
         image = frames.frame_stage(
@@ -258,20 +348,21 @@ class DataPipeline:
 
     def _produce(self, q: queue.Queue, stop: threading.Event) -> None:
         ex = ThreadPoolExecutor(self.workers)
+        plan = self._plan if self.local_rows is None else self._plan_local
         try:
             if self.device.type == "cuda":
                 from .jpeg import codec
                 codec()   # made once, before the read threads share it
                 side = torch.cuda.Stream(self.device)
                 with torch.cuda.device(self.device), torch.cuda.stream(side):
-                    for kept in self._plan(ex, side):
+                    for kept in plan(ex, side):
                         batch = self._materialize(kept)
                         event = torch.cuda.Event()
                         event.record(side)
                         if not _put(q, (batch, event), stop):
                             return
             else:
-                for kept in self._plan(ex):
+                for kept in plan(ex):
                     if not _put(q, (self._materialize(kept), None), stop):
                         return
         except BaseException as e:   # handed to the consumer, which raises

@@ -13,6 +13,11 @@ CPU), over the split's frames from a ``DataPipeline`` in order, and prints
 one JSON line: torchmetrics-compatible mAP (cxcywh, IoU 0.5:0.95,
 max_det 300), ``images`` and ``fps`` (images over the seconds spent in the
 detector, its results on the host included).
+
+Under ``torch.distributed.run`` each rank takes the card ``LOCAL_RANK`` and
+detects its rows of every batch (the sharded detect of
+``make_detector(mesh=)``); every rank holds the gathered detections and
+rank 0 prints and writes ``--dump``.
 """
 
 import argparse
@@ -92,13 +97,15 @@ def main(config=None, argv=None) -> dict:
     from .data.remote import make_filesystem
     from .inference import make_detector
     from .models.registry import serving_dtype
+    from .parallel import is_writer, local_device, mesh_from_env
 
     if config is None:
         from .utils.config import load_params
         config = load_params("params.yaml")
     hparams = config.model.hparams
     input_size = int(config.dataset.image_size[0])
-    device = torch.device(args.device)
+    device = local_device(args.device)
+    mesh = mesh_from_env(device)
     dtype = serving_dtype(device)
     model, name = restored_model(config, args.ckpt, device, dtype)
     if name:
@@ -118,9 +125,12 @@ def main(config=None, argv=None) -> dict:
                                            bool(ds.get("remote", False))),
                         workers=int(ds.get("workers", 1) or 1),
                         device=device)
-    detect = make_detector(model, hparams, input_size, compute_dtype=dtype)
+    detect = make_detector(model, hparams, input_size, compute_dtype=dtype,
+                           mesh=mesh)
     out, dumped = evaluate_batches(detect, pipe, input_size,
                                    dump=args.dump is not None)
+    if not is_writer():
+        return out
     if args.dump is not None:
         with open(args.dump, "w") as f:
             json.dump({"images": dumped}, f)

@@ -30,6 +30,15 @@ program as one ``nn.Module`` holding the model, which ``export.py`` traces.
 JAX package's other two decodes, kept with its contracts; no detector path
 calls them (the detector keeps ``decode_topk_global``).
 
+With a ``mesh`` (``parallel.make_mesh``) every detector is the sharded
+detect of the JAX package's ``make_detector(mesh=)``: each rank takes the
+global batch, detects its own rows (``parallel.row_block`` of its place on
+the mesh) through the same detector, so kernels A, B and C run per rank on
+its rows, and the fixed-shape ``Detections`` of every rank are gathered in
+the global order onto every rank. The model must hold its full weights (a
+plain module, not an FSDP2 one: kernels A and B read the DyConv weights as
+plain tensors).
+
 ``make_rtm_detector`` serves an RTMUAVDet, which ``make_detector`` does not
 take (as in the JAX package, whose only RTMUAVDet detector is the one of
 its benchmark, ``bench.py``'s cfg4): ``preprocess``, the eval-mode
@@ -322,11 +331,50 @@ class Detector(nn.Module):
         return tuple(self.body(x))
 
 
+def _on_rows(detect, model, mesh):
+    """``detect(*batches)`` (each (B, ...), the detections input-major,
+    n_in * B rows of K slots) as the sharded detect: this rank detects its
+    rows of every batch and every rank's detections are gathered in the
+    global order. A rank without rows detects nothing and takes part in the
+    gather; K (max_det, or fewer where fewer candidates go into the NMS)
+    then comes from the other ranks, in one more all-reduce."""
+    import torch.distributed as dist
+    from .parallel import all_gather_rows, batch_group, batch_index, row_block
+
+    @torch.inference_mode()
+    def run(*batches) -> Detections:
+        b, n_in = len(batches[0]), len(batches)
+        blocks = [row_block(i, mesh.size(), b) for i in range(mesh.size())]
+        mine = blocks[batch_index(mesh)]
+        device = next(model.parameters()).device
+        if len(mine):
+            det = detect(*(x[mine.start:mine.stop] for x in batches))
+            packed = torch.cat([det.boxes.float(),
+                                det.scores.float()[..., None],
+                                det.valid.float()[..., None]], dim=-1)
+        else:
+            packed = torch.zeros((0, 0, 6), device=device)
+        k = packed.shape[1]
+        if not all(len(r) for r in blocks):
+            slots = torch.tensor([k], device=device)
+            dist.all_reduce(slots, dist.ReduceOp.MAX,
+                            group=batch_group(mesh))
+            k = int(slots)
+        packed = packed.reshape(n_in, len(mine), k, 6).transpose(0, 1)
+        full = all_gather_rows(packed, [len(r) for r in blocks],
+                               batch_group(mesh))
+        full = full.transpose(0, 1).reshape(n_in * b, k, 6)
+        return Detections(boxes=full[..., :4], scores=full[..., 4],
+                          valid=full[..., 5] > 0)
+
+    return run
+
+
 def make_detector(model, hparams, input_size: int,
                   score_threshold: float = 0.001, nms_iou: float = 0.5,
                   pre_nms_topk: int = 512, max_det: int = 300,
                   compute_dtype: torch.dtype = torch.bfloat16,
-                  dual: bool = False):
+                  dual: bool = False, mesh=None):
     """``detect(images) -> Detections`` for NHWC frames (B, H, W, 3), uint8
     at any resolution or float in [0, 1]. The weights are ``model``'s own,
     read at every call; frames are moved to the model's device.
@@ -340,6 +388,9 @@ def make_detector(model, hparams, input_size: int,
     frames already at ``input_size`` skip ``preprocess``. For any other
     model, frames already at ``input_size`` are only normalized: the resize
     of ``preprocess`` does nothing at the size it is asked for.
+
+    ``mesh``: the sharded detect (see the module docstring); every rank
+    passes the global batch (or batches) and gets the global detections.
     """
     det = Detector(model, hparams, input_size, score_threshold, nms_iou,
                    pre_nms_topk, max_det, compute_dtype, dual)
@@ -355,7 +406,8 @@ def make_detector(model, hparams, input_size: int,
         return Detections(*det(torch.as_tensor(rgb, device=device),
                                torch.as_tensor(ir, device=device)))
 
-    return detect_dual if dual else detect
+    fn = detect_dual if dual else detect
+    return fn if mesh is None else _on_rows(fn, model, mesh)
 
 
 def rtm_candidates(outs, input_size: int, det_scales: Sequence[int]):
@@ -378,7 +430,7 @@ def make_rtm_detector(model, input_size: int, det_scales: Sequence[int],
                       pre_nms_topk: int = 512, nms_iou: float = 0.5,
                       max_det: int = 300,
                       compute_dtype: torch.dtype | None = None,
-                      alive_fn=nms_alive):
+                      alive_fn=nms_alive, mesh=None):
     """``detect(images) -> Detections`` for an RTMUAVDet in eval mode: the
     unfolded detect of the JAX package's cfg4 (``bench.py:158-186``) with
     the boxes kept beside the scores. NHWC frames (B, H, W, 3), uint8 or
@@ -386,7 +438,7 @@ def make_rtm_detector(model, input_size: int, det_scales: Sequence[int],
     (the scores are the heads' probabilities); invalid slots are zero.
     ``compute_dtype`` None is the model's own; ``alive_fn`` is the NMS
     survivor mask (``nms_alive_plain`` holds the kernel against the plain
-    path)."""
+    path); ``mesh`` the sharded detect, as ``make_detector``'s."""
 
     @torch.inference_mode()
     def detect(images) -> Detections:
@@ -408,4 +460,4 @@ def make_rtm_detector(model, input_size: int, det_scales: Sequence[int],
             scores=torch.where(valid, torch.gather(top_s, 1, safe), 0.0),
             valid=valid)
 
-    return detect
+    return detect if mesh is None else _on_rows(detect, model, mesh)

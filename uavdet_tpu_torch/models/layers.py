@@ -9,9 +9,11 @@ reference's (B, A, H, W, C) layout.
 """
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.batchnorm import global_batch_norm
 from ..utils.datatypes import DetectionResults
 
 
@@ -23,11 +25,21 @@ class BatchNorm2d(nn.BatchNorm2d):
     and the update are PyTorch's own pass (cuDNN on the card), on copies of
     the running statistics (autograd keeps them for the backward); then
     per channel the copies go back into the buffers, the variance's batch
-    term scaled by (n - 1) / n. Eval mode is ``nn.BatchNorm2d``'s."""
+    term scaled by (n - 1) / n. Eval mode is ``nn.BatchNorm2d``'s.
+
+    ``process_group`` (set by ``parallel.shard_model``): where it holds more
+    than one rank, training mode normalizes over the global batch, the rows
+    of every rank (``parallel.global_batch_norm``), with the same rule for
+    the running variance; None (the default) or one rank is the above."""
+
+    process_group = None
 
     def forward(self, x):
         if not (self.training and self.track_running_stats):
             return super().forward(x)
+        if (self.process_group is not None
+                and dist.get_world_size(self.process_group) > 1):
+            return global_batch_norm(x, self)
         n = x.numel() // x.shape[1]
         mean, var = self.running_mean.clone(), self.running_var.clone()
         y = F.batch_norm(x, mean, var, self.weight, self.bias, True,
@@ -145,14 +157,25 @@ class DyConvModule(nn.Module):
             # NHWC rows: a view when x is channels_last
             y = torch.bmm(x.permute(0, 2, 3, 1).reshape(b, h * w, c), kb)
             y = y.reshape(b, h, w, o).permute(0, 3, 1, 2)
+        elif b == 0:
+            # a rank without rows (a short batch over ranks): the same
+            # graph of parameters, an empty output
+            kb = torch.einsum("eoikl,be->boikl", self.weights, attn)
+            y = F.conv2d(x, kb.sum(0), stride=self.stride,
+                         padding=self.padding)
         else:
             kb = torch.einsum("eoikl,be->boikl", self.weights, attn)
             y = F.conv2d(x.reshape(1, b * c, h, w), kb.reshape(b * o, c, k, k),
                          stride=self.stride, padding=self.padding, groups=b)
-            # channels_last, as the rest of the network: BatchNorm on the
-            # grouped conv's NCHW output takes PyTorch's slow generic kernels
-            y = y.reshape(b, o, y.shape[-2], y.shape[-1]).contiguous(
-                memory_format=torch.channels_last)
+            y = y.reshape(b, o, y.shape[-2], y.shape[-1])
+            if y.is_cuda:
+                # channels_last, as the rest of the network on the card:
+                # BatchNorm on the grouped conv's NCHW output takes PyTorch's
+                # slow generic kernels there. Not on the CPU, where the rest
+                # is NCHW and the channels-last BatchNorm backward sums each
+                # channel in float32 one term after another (1 % off in a
+                # bias gradient of the tiny DyYOLO at 64 px)
+                y = y.contiguous(memory_format=torch.channels_last)
         return F.silu(self.bn(y))
 
 

@@ -14,6 +14,10 @@ size on the device with antialiasing, as PIL's ``BILINEAR`` does on the
 JAX package's host; detections are reported in ORIGINAL-image pixel
 coordinates, keyed by the path relative to the glob root. ``--draw``
 writes annotated copies with cv2 and raises where cv2 is absent.
+
+Under ``torch.distributed.run`` each rank takes the card ``LOCAL_RANK`` and
+detects its rows of every chunk (``make_detector(mesh=)``); rank 0 writes
+the JSON and the annotated copies.
 """
 
 import argparse
@@ -61,13 +65,15 @@ def main(config=None, argv=None) -> int:
     from ..evaluate import restored_model
     from ..inference import make_detector
     from ..models.registry import serving_dtype
+    from ..parallel import is_writer, local_device, mesh_from_env
 
     if config is None:
         from ..utils.config import load_params
         config = load_params("params.yaml")
     hparams = config.model.hparams
     input_size = int(config.dataset.image_size[0])
-    device = torch.device(args.device)
+    device = local_device(args.device)
+    mesh = mesh_from_env(device)
     dtype = serving_dtype(device)
     model, name = restored_model(config, args.ckpt, device, dtype)
     if args.ckpt and name is None:
@@ -75,7 +81,9 @@ def main(config=None, argv=None) -> int:
               file=sys.stderr)
         return 1
     detect = make_detector(model, hparams, input_size,
-                           score_threshold=args.score, compute_dtype=dtype)
+                           score_threshold=args.score, compute_dtype=dtype,
+                           mesh=mesh)
+    writer = is_writer()
 
     results = {}
     bs = args.batch
@@ -96,7 +104,7 @@ def main(config=None, argv=None) -> int:
                 "boxes_xyxy": np.round(bx, 2).tolist(),
                 "scores": np.round(scores[i][keep], 4).tolist(),
             }
-            if args.draw:
+            if args.draw and writer:
                 from ..utils.viz import draw_bbox, write_rgb
                 out_path = os.path.join(args.draw, rel[path])
                 os.makedirs(os.path.dirname(out_path) or args.draw,
@@ -107,6 +115,8 @@ def main(config=None, argv=None) -> int:
                 write_rgb(out_path, img)
         print(f"{min(c0 + bs, len(paths))}/{len(paths)} frames")
 
+    if not writer:
+        return 0
     with open(args.out, "w") as f:
         json.dump(results, f, indent=1)
     n_det = sum(len(v["scores"]) for v in results.values())

@@ -9,12 +9,21 @@ affine; val: in order, resize only), dispatches the model by
 metrics (``dvclive/metrics.json`` + plots tsv) and best/last checkpoints
 under ``train.checkpoint.dir``. ``--resume`` continues from the ``last``
 checkpoint. Everything runs on the card unless ``--device cpu``.
+
+Under ``torch.distributed.run`` (with ``train.trainer.devices`` the number
+of processes) each rank takes the card ``LOCAL_RANK`` and the trainer its
+place on the data x fsdp mesh; rank 0 writes the checkpoints and metrics
+and prints the result:
+
+    python -m torch.distributed.run --nproc_per_node 2 \
+        -m uavdet_tpu_torch.train [--device cpu]
 """
 
 import argparse
 
 from .data import DataPipeline, load_manifest
 from .data.remote import make_filesystem
+from .parallel import is_writer, local_device
 from .training import MetricsWriter, Trainer
 from .utils.seeding import seed_everything
 
@@ -56,12 +65,14 @@ def main(config=None, argv=None) -> dict:
     if config.train.seed:
         seed_everything(int(config.train.seed))
 
-    train_pipe, val_pipe = build_pipelines(config, args.device)
+    device = local_device(args.device)
+    train_pipe, val_pipe = build_pipelines(config, device)
     trainer = Trainer(config, train_pipe, val_pipe,
-                      metrics=MetricsWriter("dvclive"), device=args.device)
+                      metrics=MetricsWriter("dvclive"), device=device)
     final = trainer.fit(resume=args.resume)
-    print({k: round(v, 5) if isinstance(v, float) else v
-           for k, v in final.items()})
+    if is_writer():
+        print({k: round(v, 5) if isinstance(v, float) else v
+               for k, v in final.items()})
     return final
 
 

@@ -8,13 +8,16 @@ This writer reproduces those files without the dvclive dependency.
 
 The port's own copy of ``uavdet_tpu/training/dvclive_io.py`` (that
 package imports JAX); ``tests/test_torch_train_optim.py`` holds the two
-equal.
+equal. Under ``torch.distributed`` rank 0 alone writes, as the JAX trainer
+flushes on process 0 alone (one writer on a shared filesystem).
 """
 
 import json
 import os
 from collections import defaultdict
 from typing import Dict
+
+import torch.distributed as dist
 
 
 class MetricsWriter:
@@ -41,6 +44,8 @@ class MetricsWriter:
         self._latest["epoch"] = int(epoch)
 
     def flush(self):
+        if dist.is_initialized() and dist.get_rank() != 0:
+            return
         for (split, metric), rows in self._series.items():
             d = os.path.join(self.out_dir, "plots", "metrics", split)
             os.makedirs(d, exist_ok=True)

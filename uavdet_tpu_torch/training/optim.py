@@ -73,11 +73,27 @@ def clip_by_global_norm_(grads: Sequence[torch.Tensor],
                          max_norm: float) -> None:
     """optax's ``clip_by_global_norm`` in place: where the global norm is
     at least ``max_norm``, every gradient becomes g / norm * max_norm. On
-    the device, without a host sync."""
-    norm = torch.linalg.vector_norm(
-        torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+    the device, without a host sync. Under FSDP2 (gradients that are
+    sharded DTensors) the norm is the whole model's: the squared norms of
+    the local shards summed over the ranks that shard them."""
+    from torch.distributed.tensor import DTensor
+    local = [g.to_local() if isinstance(g, DTensor) else g for g in grads]
+    norms = torch.stack([torch.linalg.vector_norm(g) for g in local])
+    sharded = [isinstance(g, DTensor) for g in grads]
+    if any(sharded):
+        g0 = grads[sharded.index(True)]
+        mask = torch.tensor(sharded, device=norms.device)
+        sq = norms.square()
+        part = torch.where(mask, sq, 0.0).sum()
+        for dim, placement in enumerate(g0.placements):
+            if placement.is_shard():
+                torch.distributed.all_reduce(
+                    part, group=g0.device_mesh.get_group(dim))
+        norm = (torch.where(mask, 0.0, sq).sum() + part).sqrt()
+    else:
+        norm = torch.linalg.vector_norm(norms)
     scale = torch.where(norm < max_norm, 1.0, max_norm / norm)
-    torch._foreach_mul_(list(grads), scale)
+    torch._foreach_mul_(local, scale)
 
 
 def update(state: TrainState, grad_batches: int = 1,

@@ -14,18 +14,31 @@ in float32 whatever the frames' dtype.
 
 The head strides come from the feature shapes (``input_size // S``), not
 from ``head_scales``.
+
+On a mesh (``mesh``, with ``model`` placed by ``parallel.shard_model``)
+each rank's batch is its own rows. The loss is a per-sample mean, then a
+batch mean, and DDP and FSDP2 average the ranks' gradients, which is the
+global batch's gradient only where every rank holds as many rows; so each
+rank's loss is scaled by ``rows * world / global rows`` (1.0 where the
+rows are equal), and a short batch (``drop_last`` false, a drop-empty) still
+gives the global mean. One all-reduce per microbatch carries the rows and
+the row-weighted losses, so the metrics are the global batch's on every
+rank. With ``grad_batches`` above 1 the gradients stay on the rank for all
+but the last microbatch of an update (``parallel.gradient_sync``).
 """
 
 import contextlib
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from ..ops.losses import yolo_loss
+from ..ops.losses import LossBreakdown, yolo_loss
 from ..ops.targets import encode_yolo_targets
+from ..parallel import batch_group, gradient_sync
 from ..utils.datatypes import BatchData, TrainState
 from .optim import update
 
@@ -75,6 +88,21 @@ def _loss(outs, batch: BatchData, anchors, input_size: int, weights: dict):
     return yolo_loss(outs, grids, anchors, scales, **weights)
 
 
+def _global_metrics(lb, rows: int, group) -> tuple:
+    """-> (metrics of the global batch, this rank's loss scale ``rows *
+    world / global rows``): one all-reduce of the rows and the row-weighted
+    losses over ``group``. A rank without rows adds zeros."""
+    losses = torch.stack([lb.total, lb.bbox, lb.obj]).detach().float()
+    packed = torch.cat([losses.new_full((1,), float(rows)),
+                        losses * rows if rows else torch.zeros_like(losses)])
+    dist.all_reduce(packed, group=group)
+    total = packed[0]
+    means = packed[1:] / total
+    metrics = {"loss": means[0], "bbox_loss": means[1],
+               "obj_loss": means[2]}
+    return metrics, rows * dist.get_world_size(group) / total
+
+
 def _saves_dots(ctx, op, *args, **kwargs):
     """Selective-checkpoint policy of ``jax.checkpoint_policies
     .dots_saveable``: keep the outputs of convolutions and matmuls,
@@ -96,10 +124,12 @@ def make_train_step(model: nn.Module, hparams, input_size: int,
                     compute_dtype: torch.dtype = torch.float32,
                     grad_batches: int = 1,
                     grad_clip_val: float | None = None, remat=False,
-                    nan_guard: bool = False):
+                    nan_guard: bool = False, mesh=None):
     """-> ``train_step(state, batch) -> metrics``: one microbatch, the
     update every ``grad_batches``-th; metrics ``loss``, ``bbox_loss`` and
-    ``obj_loss`` as device tensors.
+    ``obj_loss`` as device tensors. On a ``mesh`` ``model`` is the placed
+    model, ``batch`` the rank's rows (see the module docstring), and the
+    metrics those of the global batch.
 
     ``remat``: recompute the forward in the backward
     (``torch.utils.checkpoint``): ``True`` keeps nothing, ``'dots_saveable'``
@@ -134,19 +164,27 @@ def make_train_step(model: nn.Module, hparams, input_size: int,
             return checkpoint(plain_forward, x, use_reentrant=False, **kw)
 
     buffers = _bn_buffers(model)
+    group = batch_group(mesh)
 
     def train_step(state: TrainState, batch: BatchData) -> dict:
         model.train()
         before = ([b.clone() for b in buffers] if nan_guard else None)
-        outs = forward(batch.image)
-        lb = _loss(outs, batch, anchors, input_size, weights)
-        metrics = {"loss": lb.total.detach(), "bbox_loss": lb.bbox.detach(),
-                   "obj_loss": lb.obj.detach()}
-        if nan_guard and not bool(torch.isfinite(lb.total)):
-            torch._foreach_copy_(buffers, before)
-            return metrics
-        after = [b.clone() for b in buffers] if remat else None
-        (lb.total / grad_batches).backward()
+        with gradient_sync(model, state.mini_step + 1 >= grad_batches):
+            outs = forward(batch.image)
+            lb = _loss(outs, batch, anchors, input_size, weights)
+            loss = lb.total
+            if group is None:
+                metrics = {"loss": lb.total.detach(),
+                           "bbox_loss": lb.bbox.detach(),
+                           "obj_loss": lb.obj.detach()}
+            else:
+                metrics, scale = _global_metrics(lb, len(batch.image), group)
+                loss = loss * scale
+            if nan_guard and not bool(torch.isfinite(metrics["loss"])):
+                torch._foreach_copy_(buffers, before)
+                return metrics
+            after = [b.clone() for b in buffers] if remat else None
+            (loss / grad_batches).backward()
         if remat:
             torch._foreach_copy_(buffers, after)
         update(state, grad_batches, grad_clip_val)
@@ -156,19 +194,28 @@ def make_train_step(model: nn.Module, hparams, input_size: int,
 
 
 def make_eval_step(model: nn.Module, hparams, input_size: int,
-                   compute_dtype: torch.dtype = torch.float32):
+                   compute_dtype: torch.dtype = torch.float32, mesh=None):
     """-> ``eval_step(batch) -> metrics`` (the validation loss), the
-    forward in eval mode; metrics as device tensors."""
+    forward in eval mode; metrics as device tensors. On a ``mesh`` the
+    batch is the rank's rows of the model (a plain module with the full
+    weights) and the metrics those of the global batch, weighted by rows."""
     device = next(model.parameters()).device
     anchors = _anchors(hparams, device)
     weights = _loss_weights(hparams)
+    group = batch_group(mesh)
 
     @torch.no_grad()
     def eval_step(batch: BatchData) -> dict:
         model.eval()
-        with autocast(device, compute_dtype):
-            outs = model(batch.image)
-        lb = _loss(outs, batch, anchors, input_size, weights)
+        rows = len(batch.image)
+        if group is not None and rows == 0:   # nothing to run, one to sum
+            lb = LossBreakdown(*torch.zeros(3, device=device))
+        else:
+            with autocast(device, compute_dtype):
+                outs = model(batch.image)
+            lb = _loss(outs, batch, anchors, input_size, weights)
+        if group is not None:
+            return _global_metrics(lb, rows, group)[0]
         return {"loss": lb.total, "bbox_loss": lb.bbox, "obj_loss": lb.obj}
 
     return eval_step

@@ -10,9 +10,26 @@ fraction, an int a count), ``val_check_interval``,
 (``torch.profiler``, a trace under ``logs/profile``), ``remat``; with the
 best/last checkpoint policy and DVCLive-format metrics. ``fold_early`` is
 a TPU layout rewrite that equals the unfolded step up to reassociation: it
-is accepted and changes nothing. The multi-device keys (``devices``,
-``fsdp_devices``, ``sp_devices``, ``ep_devices``, ``pp_devices`` above 1,
-``multihost``) raise: the port trains on one device.
+is accepted and changes nothing.
+
+Multi-device keys, with the JAX meaning: ``devices`` is the total, data x
+fsdp, ``fsdp_devices`` its fsdp factor; ``multihost`` (with
+``coordinator``, ``num_processes``, ``process_id`` where
+``torch.distributed.run``'s environment does not give them) starts the
+process group. One process drives one device: with ``devices`` above 1 the
+trainer joins the running process group, or starts it from the
+environment or from those keys, and trains on a ``parallel.make_mesh``
+mesh (DDP, FSDP2 or HSDP, ``parallel.shard_model``) where the world has
+``devices`` ranks; with fewer it warns and trains on one device, as the JAX
+trainer does. With ``multihost`` the train pipeline decodes only this
+rank's rows (``set_local_rows``); otherwise every rank takes the global
+batch and keeps its rows. Validation gives every rank the full batch: the
+loss is over each rank's rows, reduced by rows, and the AP gathers every
+rank's detections (the sharded detect) so that every rank holds the same
+metric. Under FSDP2 validation runs on a plain copy of the model whose
+weights are gathered once per validation pass. Rank 0 writes the
+checkpoints and the metrics. ``sp_devices``, ``ep_devices`` and
+``pp_devices`` above 1 raise, naming their ROADMAP items.
 
 The model is built at construction with float32 parameters and seeded
 weights (``train.seed``, ``utils.seeding.init_weights``); ``fit`` trains it
@@ -24,6 +41,7 @@ to its device (a pipeline on the same device hands them over there).
 """
 
 import contextlib
+import copy
 import math
 import os
 import time
@@ -31,8 +49,13 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..ops.map import MeanAveragePrecision, add_detections
+from ..parallel import (check_batch_divisible, check_layout_supported,
+                        copy_full_weights, init_multihost, local_batch_rows,
+                        local_device, make_mesh, shard_host_batch,
+                        shard_model)
 from ..utils.datatypes import BatchData
 from ..utils.seeding import seeded_model
 from .checkpoint import CheckpointManager
@@ -41,8 +64,6 @@ from .optim import build_optimizer
 from .steps import (REMAT_POLICIES, autocast, init_state, make_eval_step,
                     make_train_step)
 
-_MULTI_DEVICE = ("devices", "fsdp_devices", "sp_devices", "ep_devices",
-                 "pp_devices")
 _METRICS = ("loss", "bbox_loss", "obj_loss")
 
 
@@ -69,16 +90,9 @@ class Trainer:
         self.train_pipe = train_pipe
         self.val_pipe = val_pipe
         tcfg = config.train.trainer
-        for key in _MULTI_DEVICE:
-            if int(tcfg.get(key, 1) or 1) > 1:
-                raise ValueError(
-                    f"train.trainer.{key}={tcfg.get(key)}: the torch port "
-                    "trains on one device; multi-device training is ROADMAP "
-                    "queue 1 item 8")
-        if tcfg.get("multihost", False):
-            raise ValueError("train.trainer.multihost: the torch port trains "
-                             "on one device; multi-host training is ROADMAP "
-                             "queue 1 item 8")
+        check_layout_supported(sp=tcfg.get("sp_devices", 1),
+                               ep=tcfg.get("ep_devices", 1),
+                               pp=tcfg.get("pp_devices", 1))
         self.epochs = int(tcfg.epochs)
         self.grad_batches = int(tcfg.get("grad_batches", 1) or 1)
         self.train_limit = tcfg.get("train_batches")
@@ -104,12 +118,33 @@ class Trainer:
         self._n_metric_syncs = 0
         self.input_size = int(config.dataset.image_size[0])
         self.metrics = metrics or MetricsWriter()
-        self.device = torch.device(device)
+        self.multihost = bool(tcfg.get("multihost", False))
+        self.mesh = self._make_mesh(tcfg, device)
+        self.device = (local_device(device) if self.mesh is not None
+                       else torch.device(device))
 
         hparams = config.model.hparams
         self.model = seeded_model(config.model.name, hparams,
                                   int(config.train.seed or 0), self.device,
                                   dtype=torch.float32)
+        # the model the steps run: placed on the mesh; validation and the
+        # detector run a plain module with the full weights (the model
+        # itself under DDP, a copy under FSDP2)
+        self.train_model = self.model
+        self.eval_model = self.model
+        self.train_rows = self.val_rows = None
+        if self.mesh is not None:
+            bs = int(config.dataset.batch_size)
+            check_batch_divisible(bs, self.mesh)
+            self.train_rows = self.val_rows = local_batch_rows(self.mesh, bs)
+            fsdp = self.mesh["fsdp"].size() > 1
+            if fsdp:
+                self.eval_model = copy.deepcopy(self.model)
+            self.train_model = shard_model(self.model, self.mesh)
+            if self.multihost and hasattr(train_pipe, "set_local_rows"):
+                # the pipeline yields this rank's rows alone
+                if train_pipe.set_local_rows(self.train_rows):
+                    self.train_rows = None
         # lr_scheduler_interval 'epoch': the schedule sees the epoch index
         steps_per_epoch = None
         if str(hparams.get("lr_scheduler_interval", "step")) == "epoch":
@@ -117,8 +152,9 @@ class Trainer:
                 1, _limit(len(train_pipe), self.train_limit)
                 // max(1, self.grad_batches))
         optimizer, scheduler = build_optimizer(
-            self.model.parameters(), hparams, steps_per_epoch=steps_per_epoch)
-        self.state = init_state(self.model, optimizer, scheduler)
+            self.train_model.parameters(), hparams,
+            steps_per_epoch=steps_per_epoch)
+        self.state = init_state(self.train_model, optimizer, scheduler)
         self._detector = None   # built once, at the first validation
 
         ckpt_cfg = config.train.checkpoint
@@ -126,18 +162,56 @@ class Trainer:
             ckpt_cfg.dir, monitor=ckpt_cfg.monitor, mode=ckpt_cfg.mode)
         self.epoch_seconds: list = []   # wall-clock per epoch
 
+    def _make_mesh(self, tcfg, device):
+        """The data x fsdp mesh of ``devices``, or None (one device)."""
+        n_devices = int(tcfg.get("devices", 1) or 1)
+        n_fsdp = int(tcfg.get("fsdp_devices", 1) or 1)
+        if not (self.multihost or n_devices > 1):
+            return None
+        running = init_multihost(
+            coordinator=tcfg.get("coordinator"),
+            num_processes=tcfg.get("num_processes"),
+            process_id=tcfg.get("process_id"), device=device)
+        world = dist.get_world_size() if running else 1
+        if n_devices % n_fsdp:
+            raise ValueError(
+                f"train.trainer.devices={n_devices} is not divisible by "
+                f"fsdp_devices={n_fsdp}")
+        if not running or world < n_devices:
+            if n_devices > 1:
+                print(f"WARNING: train.trainer.devices={n_devices} but only "
+                      f"{world} process(es) run; running single-device")
+            return None
+        if world > n_devices:
+            raise ValueError(
+                f"train.trainer.devices={n_devices} but {world} processes "
+                "run: one process drives one device")
+        return make_mesh(n_devices // n_fsdp, n_fsdp,
+                         "cuda" if torch.device(device).type == "cuda"
+                         else "cpu")
+
+    @property
+    def rank(self) -> int:
+        return dist.get_rank() if self.mesh is not None else 0
+
     def _build_steps(self):
         hparams = self.config.model.hparams
         train_step = make_train_step(
-            self.model, hparams, self.input_size,
+            self.train_model, hparams, self.input_size,
             compute_dtype=self.compute_dtype, grad_batches=self.grad_batches,
             grad_clip_val=self.grad_clip_val, remat=self.remat,
-            nan_guard=self.nan_guard)
-        eval_step = make_eval_step(self.model, hparams, self.input_size,
-                                   compute_dtype=self.compute_dtype)
+            nan_guard=self.nan_guard, mesh=self.mesh)
+        eval_step = make_eval_step(self.eval_model, hparams, self.input_size,
+                                   compute_dtype=self.compute_dtype,
+                                   mesh=self.mesh)
         return train_step, eval_step
 
-    def _to_device(self, batch) -> BatchData:
+    def _to_device(self, batch, rows=None) -> BatchData:
+        """The batch on the trainer's device; with ``rows`` (the rows this
+        rank holds of a global batch) those rows alone."""
+        if rows is not None:
+            batch = shard_host_batch(batch, rows)
+
         def tensor(t):
             if torch.is_tensor(t):
                 return t
@@ -166,7 +240,7 @@ class Trainer:
         with prof:
             for epoch in range(self.epochs):
                 self._epoch(epoch, state, train_step, eval_step, final)
-        if self.profiler:
+        if self.profiler and self.rank == 0:
             os.makedirs("logs/profile", exist_ok=True)
             prof.export_chrome_trace("logs/profile/trace.json")
 
@@ -186,7 +260,7 @@ class Trainer:
         for i, batch in enumerate(iter(self.train_pipe)):
             if i >= n_train:
                 break
-            m = train_step(state, self._to_device(batch))
+            m = train_step(state, self._to_device(batch, self.train_rows))
             if self.nan_guard and not math.isfinite(float(m["loss"])):
                 nan_hits += 1
                 print(f"WARNING: non-finite loss at step {i} "
@@ -255,18 +329,22 @@ class Trainer:
         n_val = _limit(len(self.val_pipe), self.val_limit)
         ms = []
         ap_metric = None
+        if self.eval_model is not self.model:   # FSDP2: gathered once here
+            copy_full_weights(self.train_model, self.eval_model)
         if self.eval_ap:
             from ..inference import make_detector
             ap_metric = MeanAveragePrecision()
             if self._detector is None:
                 self._detector = make_detector(
-                    self.model, self.config.model.hparams, self.input_size,
-                    compute_dtype=self.compute_dtype)
+                    self.eval_model, self.config.model.hparams,
+                    self.input_size, compute_dtype=self.compute_dtype,
+                    mesh=self.mesh)
         for i, batch in enumerate(iter(self.val_pipe)):
             if i >= n_val:
                 break
             batch = self._to_device(batch)
-            ms.append(eval_step(batch))
+            ms.append(eval_step(batch if self.val_rows is None else
+                                shard_host_batch(batch, self.val_rows)))
             if ap_metric is not None:
                 self._update_ap(ap_metric, self._detector, batch)
         # one host fetch for the whole validation pass
@@ -278,7 +356,10 @@ class Trainer:
         return out
 
     def _update_ap(self, ap_metric, detect, batch: BatchData) -> None:
-        self.model.eval()
+        """``batch`` is the global batch: on a mesh the detector gathers
+        every rank's detections, so the metric is the same on every
+        rank."""
+        self.eval_model.eval()
         with autocast(self.device, self.compute_dtype):
             det = detect(batch.image)
         add_detections(ap_metric, det, batch.boxes, batch.box_mask,
