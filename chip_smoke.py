@@ -172,7 +172,24 @@ nor PyYAML. The phases, in order:
      restores in one process), then FSDP2 over the two processes where
      gloo carries its collectives on CUDA tensors (else said so); (c) the
      two-rank ms per microbatch beside the one-process one, peak memory per
-     rank, as a ``{"multi_device": ...}`` line;
+     rank;
+  7p. sp and ep (one card: two processes sharing it over gloo, each with a
+     deadline, ``sp_ep_rank_job``): on a mesh of sp 2 the spatial detect
+     (``make_detector(mesh=, spatial=True)``) of phase 6's DyYOLO (640 px,
+     batch 16, 320 rows a rank, bf16) and of phase 7's DySOEM_SimFPN (cfg3:
+     1280 px, batch 32) against the one-process detects on the same frames
+     (the card's score limit, valid counts within 5 %), the launches on each
+     rank (A, B and C once per request; D three times and C once), ms per
+     request and peak memory per rank beside one process's; kernels A and
+     B on a rank's band with the stem's halo rows (``fused_stem_rows``'s
+     operands) and kernel D on the first SOEM's halo'd band, against their
+     plain versions (the first 4 images); the float32 tiny DyYOLO step on
+     sp 2 and on ep 2 against one process (rtol 1e-4); cfg6 under sp 2 (8
+     rows, each rank its band) and under ep 2 (4 rows a rank, the expert
+     stacks sliced): finite, no kernel, ms per microbatch, peak memory, the
+     expert bytes per rank and the bytes each DyConv's collectives move
+     beside an all-gather of its slices; then 7o's and 7p's readings as one
+     ``{"multi_device": ...}`` line;
   8. times, with CUDA events, medians after warm-up: the four detectors per
      batch, and each kernel at its main-path shapes beside its plain
      version and beside one bf16 ``F.conv2d(groups=B)`` call that computes
@@ -326,6 +343,14 @@ MD_BN_CALLS = 50                     # timed calls of one BatchNorm
 # one rank
 MD_ONE_RTOL = 1e-5
 
+# sp and ep (7p): two processes share the card over gloo, as in 7o (b)
+SP_RANKS = 2
+SP_TIMEOUT = 600                     # seconds for the launch of the two ranks
+SP_FRAMES_SEED = 8                   # the spatial DySOEM detect's frames
+SP_CHECK_FRAMES = 4                  # images of a halo'd band held against
+                                     # the plain versions of A, B and D
+SP_ITERS, SP_WARMUP = 5, 1           # timed requests of a spatial detect
+
 KERNELS = {
     "stem_l1": ("uavdet_tpu_torch/csrc/stem_l1.cu",
                 "uavdet_tpu/ops/pallas_stem_split.py:62"),
@@ -391,6 +416,15 @@ EXPECTED_LAUNCHES = {
     # per validation batch of Trainer.fit with multihost, each rank (7o)
     "Trainer.fit multihost, rank 0": {"stem_l1": 1, "stem_l2": 1, "nms": 1},
     "Trainer.fit multihost, rank 1": {"stem_l1": 1, "stem_l2": 1, "nms": 1},
+    # per request of the spatial (sp 2) detect, on each of the two ranks, on
+    # its band of rows (7p)
+    "DyYOLO spatial detect, rank 0": {"stem_l1": 1, "stem_l2": 1, "nms": 1},
+    "DyYOLO spatial detect, rank 1": {"stem_l1": 1, "stem_l2": 1, "nms": 1},
+    "DySOEM_SimFPN spatial detect, rank 0": {"nms": 1, "dyconv": 3},
+    "DySOEM_SimFPN spatial detect, rank 1": {"nms": 1, "dyconv": 3},
+    # per microbatch of the sp 2 and ep 2 train steps (7p)
+    "DyYOLO train step, sp 2": {},
+    "DyYOLO train step, ep 2": {},
     # one run of a ladder's entry point: every stage, warm-up included
     "l2_ablate": {"stem_l2_stage": 5 * (LADDER_ITERS + 3)},
     "block_ablate": {"post_stem_block": 4 * (LADDER_ITERS + 3)},
@@ -1122,9 +1156,42 @@ def md_cfg6(hp, size, dev, mesh, batches, fsdp=None, iters=MD_ITERS,
     out = {"losses": losses, "counts": counts, "ms_per_microbatch": ms,
            "rows": len(batches[0].image), "step": state.step,
            "peak_gib": md_sync(dev)}
+    from uavdet_tpu_torch.parallel import expert_params, unwrap
+    slices = expert_params(unwrap(placed))
+    if slices:   # ep: the slices this rank holds, the bytes its DyConvs move
+        rows = out["rows"]
+        out["expert_bytes"] = sum(p.numel() * p.element_size()
+                                  for p in slices)
+        out["dyconv_bytes"] = ep_bytes(unwrap(placed), rows,
+                                       rows * mesh["ep"].size())
     del model, placed, state, step
     if dev.type == "cuda":
         torch.cuda.empty_cache()
+    return out
+
+
+def ep_bytes(model, rows: int, group_rows: int) -> dict:
+    """Bytes of one forward's collectives of each ``ep``-sliced module on a
+    rank (``rows`` its rows, ``group_rows`` its ``ep`` group's), from the
+    shapes: the attentions' all-gather and the partial kernels' all-reduce
+    (``parallel/experts.py:mix_slices``; the backward moves the same again),
+    beside one all-gather of the slices into the whole stacks. A tensor's
+    bytes, not a ring's traffic."""
+    out = {}
+    for name, m in model.named_modules():
+        sl = [p for p in m.parameters(recurse=False)
+              if getattr(p, "ep_slice", None) is not None]
+        if not sl:
+            continue
+        info, size = sl[0].ep_slice, sl[0].element_size()
+        kernel = sum(p.numel() // (info.hi - info.lo) * info.n_out
+                     for p in sl)
+        out[name] = {
+            "attention_all_gather": info.n * max(rows, 1) * info.n_experts
+            * 4,
+            "partial_kernels_all_reduce": group_rows * kernel * size,
+            "slices_all_gather": sum(int(np.prod(p.ep_slice.full_shape))
+                                     for p in sl) * size}
     return out
 
 
@@ -1238,7 +1305,7 @@ def md_rank_job(spec: dict) -> dict:
     dev = local_device(spec["device"])
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
-    mesh = make_mesh(MD_RANKS, 1, dev.type)
+    mesh = make_mesh(MD_RANKS, device_type=dev.type)
     rank = dist.get_rank()
     out = {"rank": rank, "device": str(dev), "backend": dist.get_backend()}
     out["f32_losses"] = md_f32_losses(spec["tiny_hp"], spec["parity"], dev,
@@ -1301,7 +1368,7 @@ def md_fsdp_job(spec: dict) -> list:
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     return md_f32_losses(spec["tiny_hp"], spec["parity"], dev,
-                         make_mesh(1, MD_RANKS, dev.type))
+                         make_mesh(1, MD_RANKS, device_type=dev.type))
 
 
 class _Recorder:
@@ -1388,7 +1455,7 @@ class MultiDevice:
             store=dist.FileStore(os.path.join(tmp, "store"), 1), rank=0,
             world_size=1)
         try:
-            mesh = make_mesh(1, 1, dev.type)
+            mesh = make_mesh(1, device_type=dev.type)
             for name, fsdp in (("ddp", False), ("fsdp2", True)):
                 got = md_f32_losses(self.tiny_hp, parity, dev, mesh, fsdp)
                 rel = float(np.max(np.abs(np.subtract(got, self.single))
@@ -1616,8 +1683,274 @@ class MultiDevice:
             "detect_ms": [r["detect_ms"] for r in ranks],
             "one_process_detect_ms": one_ms, "detect_bitwise": bitwise,
             "fit": [r["fit"]["final"] for r in ranks]}
-        print(json.dumps({"multi_device": self.report}))
 
+
+def bf16_close(got, want) -> dict:
+    """The stated bf16 tolerance (RTOL, ATOL) of a kernel against its plain
+    version, as numbers a rank returns."""
+    import torch
+    g, w = got.float(), want.float()
+    return {"ok": got.shape == want.shape and bool(torch.isfinite(g).all())
+            and bool(torch.allclose(g, w, rtol=RTOL, atol=ATOL)),
+            "max_abs_err": float((g - w).abs().max()),
+            "shape": list(got.shape)}
+
+
+def sums_err(got, want) -> dict:
+    """Channel sums against the plain version's: held against the largest
+    sum (see phase 2)."""
+    err = float((got - want).abs().max())
+    return {"ok": err <= 1e-3 * float(want.abs().max()),
+            "max_abs_err": err}
+
+
+def sp_detect_run(detect, frames, dev) -> dict:
+    """One spatial (or one-process) detect of ``frames``: a warm-up call,
+    then REQUESTS requests with the launch counts set to 0 just before and
+    read just after, the first result on the host, the ms per request and
+    the peak device memory of the requests (and above what was resident
+    before them)."""
+    from uavdet_tpu_torch import kernels
+    detect(frames)
+    resident = 0.0
+    if dev.type == "cuda":
+        import torch
+        md_sync(dev, peak_reset=True)
+        resident = torch.cuda.memory_allocated(dev) / 2**30
+    kernels.reset_launch_counts()
+    results = [detect(frames) for _ in range(REQUESTS)]
+    peak = md_sync(dev)
+    counts = kernels.launch_counts()
+    ms = md_ms(lambda: detect(frames), dev, SP_ITERS, SP_WARMUP)
+    return {"result": [t.cpu() for t in results[0]], "counts": counts,
+            "ms": ms, "peak_gib": peak, "above_resident_gib": peak - resident}
+
+
+def sp_kernel_checks(mesh, dy_model, soem_model, frames,
+                     soem_frames) -> dict:
+    """Kernels A and B on this rank's band of ``frames`` with the stem's halo
+    (as ``fused_stem_rows`` takes it), and kernel D on the first SOEM's
+    halo'd band of ``soem_frames`` (as ``DynamicSOEM`` passes it under sp),
+    each against its plain version, the first SP_CHECK_FRAMES images."""
+    import torch
+    from uavdet_tpu_torch.inference import preprocess
+    from uavdet_tpu_torch.ops import stem
+    from uavdet_tpu_torch.ops.dyconv import dyconv, dyconv_plain
+    from uavdet_tpu_torch.parallel import (coordinate, row_band, sp_group,
+                                           sp_rows, sp_sum)
+    group, index = sp_group(mesh), coordinate(mesh)[2]
+    n = mesh["sp"].size()
+    out = {}
+    x = frames[:SP_CHECK_FRAMES]
+    height = x.shape[1]
+    band = row_band(index, n, height, 32)
+    top = stem.STEM_HALO[0] if band.start else 0
+    bottom = stem.STEM_HALO[1] if band.stop < height else 0
+    xh = x[:, band.start - top:band.stop + bottom].contiguous()
+    dy0, dy1 = dy_model.layers[0], dy_model.layers[1]
+    temp = dy_model.attn_temperature
+    h = len(band)
+    with torch.inference_mode():
+        k1 = stem.stem_l1_weights(xh[:, top:top + h], dy0, temp, group)
+        a1, sums = stem.stem_l1(xh, k1)
+        a1_p, sums_p = stem.stem_l1_plain(xh, k1)
+        out["A output"] = bf16_close(a1, a1_p)
+        out["A sums"] = sums_err(sums, sums_p)
+        halo = torch.cat([a1[:, :top], a1[:, top + h:]], dim=1)
+        k2 = stem.stem_l2_weights(sp_sum(sums - halo.float().sum((1, 2)),
+                                         group), n * h * x.shape[2], dy1,
+                                  temp)
+        a1b = a1[:, :top + h]
+        out["B output"] = bf16_close(stem.stem_l2(a1b, k2),
+                                     stem.stem_l2_plain(a1b, k2))
+        out["A, B block"] = {"rows": h, "top": top, "bottom": bottom,
+                             "a1_rows": int(a1.shape[1])}
+        seen = []
+
+        def capture(f, k, mul, add, emit_gap=False):
+            if not seen:
+                seen.append((f, k, mul, add, emit_gap))
+            return dyconv(f, k, mul, add, emit_gap=emit_gap)
+
+        size = soem_frames.shape[1]
+        sband = row_band(index, n, size, 8)
+        xs = preprocess(soem_frames[:SP_CHECK_FRAMES], size)
+        with sp_rows(soem_model, group):
+            soem_model(xs[:, sband.start:sband.stop], conv=capture)
+        f, k, mul, add, emit = seen[0]
+        got, got_s = dyconv(f, k, mul, add, emit_gap=True)
+        want, want_s = dyconv_plain(f, k, mul, add, emit_gap=True)
+        out["D output"] = bf16_close(got, want)
+        out["D sums"] = sums_err(got_s, want_s)
+        out["D block"] = {"rows": len(sband) // 2, "f_rows": int(f.shape[1]),
+                          "emit_gap": bool(emit)}
+    return out
+
+
+def sp_ep_rank_job(spec: dict) -> dict:
+    """One of the two ranks of phase 7p, sharing the card over gloo: on sp
+    2, the spatial detects of full-width DyYOLO and DySOEM_SimFPN, kernels A,
+    B and D on halo'd bands against their plain versions, the float32 tiny
+    step and cfg6; on ep 2, the float32 tiny step and cfg6."""
+    import torch
+    import torch.distributed as dist
+    from uavdet_tpu_torch.inference import make_detector
+    from uavdet_tpu_torch.models.registry import DYSOEM
+    from uavdet_tpu_torch.parallel import (local_batch_rows, local_device,
+                                           make_mesh, shard_host_batch)
+    from uavdet_tpu_torch.utils.seeding import seeded_model
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = local_device(spec["device"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    out = {"rank": dist.get_rank(), "device": str(dev),
+           "backend": dist.get_backend()}
+    sp = make_mesh(1, 1, SP_RANKS, 1, device_type=dev.type)
+    size, soem_size = spec["size"], spec["soem_size"]
+
+    def frames_of(seed, batch, hw):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return torch.randint(0, 256, (batch, hw, hw, 3), dtype=torch.uint8,
+                             device=dev, generator=g)
+
+    frames = frames_of(MD_FRAMES_SEED, spec["detect_batch"], size)
+    soem_frames = frames_of(SP_FRAMES_SEED, spec["soem_batch"], soem_size)
+    # bf16, as phases 6 and 7 serve them (and as the card's default)
+    dy = seeded_model("DyYOLO", spec["hp"], SEED, dev, dtype=torch.bfloat16)
+    soem = seeded_model("DySOEM_SimFPN", DYSOEM, SEED, dev,
+                        dtype=torch.bfloat16)
+    out["dyyolo"] = sp_detect_run(make_detector(
+        dy, spec["hp"], size, mesh=sp, spatial=True), frames, dev)
+    out["dysoem"] = sp_detect_run(make_detector(
+        soem, DYSOEM, soem_size, mesh=sp, spatial=True), soem_frames, dev)
+    out["kernels"] = sp_kernel_checks(sp, dy, soem, frames, soem_frames)
+    del dy, soem
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    out["sp_f32_losses"] = md_f32_losses(spec["tiny_hp"], spec["parity"],
+                                         dev, sp)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    batch = spec["train_batch"]
+    batches = [painted_batch(gen, dev, batch, size) for _ in range(4)]
+    out["sp_cfg6"] = md_cfg6(spec["hp"], size, dev, sp, batches)
+
+    ep = make_mesh(1, 1, 1, SP_RANKS, device_type=dev.type)
+    out["ep_f32_losses"] = md_f32_losses(spec["tiny_hp"], spec["parity"],
+                                         dev, ep)
+    rows = local_batch_rows(ep, batch)
+    out["ep_cfg6"] = md_cfg6(spec["hp"], size, dev, ep,
+                             [shard_host_batch(b, rows) for b in batches])
+    return out
+
+
+class SpatialExperts:
+    """Phase 7p: the ``sp`` and ``ep`` axes on two processes sharing the
+    card over gloo (``sp_ep_rank_job``): the spatial detects against the
+    one-process detects, their launches on each rank, kernels A, B and D on
+    halo'd bands against their plain versions, the float32 tiny steps
+    against one process, cfg6 under both axes; the readings go into 7o's
+    ``{"multi_device": ...}`` line."""
+
+    def __init__(self, smoke, dev, tag, md, hp, size=SIZE,
+                 detect_batch=BATCH, soem_size=SOEM_SIZE,
+                 soem_batch=SOEM_BATCH, train_batch=TRAIN_BATCH):
+        self.smoke, self.dev, self.tag, self.md = smoke, dev, tag, md
+        self.hp, self.size, self.detect_batch = hp, size, detect_batch
+        self.soem_size, self.soem_batch = soem_size, soem_batch
+        self.train_batch = train_batch
+
+    def run(self, detect, soem_detect):
+        """``detect`` and ``soem_detect``: the one-process detectors of
+        phases 6 and 7, held against the ranks on the same frames."""
+        import torch
+        from uavdet_tpu_torch.parallel.dryrun import launch
+        from uavdet_tpu_torch.utils.datatypes import Detections
+        smoke, dev, md = self.smoke, self.dev, self.md
+        spec = {"tiny_hp": md.tiny_hp, "parity": md.parity_batches(),
+                "device": dev.type, "hp": self.hp, "size": self.size,
+                "detect_batch": self.detect_batch,
+                "soem_size": self.soem_size, "soem_batch": self.soem_batch,
+                "train_batch": self.train_batch}
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = launch("chip_smoke:sp_ep_rank_job", SP_RANKS, args=(spec,),
+                       device=dev.type, timeout=SP_TIMEOUT)
+        seconds = time.perf_counter() - t0
+        print(f"sp / ep: two ranks on one card ({ranks[0]['backend']}, "
+              f"devices {[r['device'] for r in ranks]}): {seconds:.1f} s")
+
+        def frames_of(seed, batch, hw):
+            g = torch.Generator(device=dev).manual_seed(seed)
+            return torch.randint(0, 256, (batch, hw, hw, 3),
+                                 dtype=torch.uint8, device=dev, generator=g)
+
+        report = {"seconds": seconds, "backend": ranks[0]["backend"]}
+        for name, path, fn, frames in (
+                ("dyyolo", "DyYOLO", detect,
+                 frames_of(MD_FRAMES_SEED, self.detect_batch, self.size)),
+                ("dysoem", "DySOEM_SimFPN", soem_detect,
+                 frames_of(SP_FRAMES_SEED, self.soem_batch,
+                           self.soem_size))):
+            one = sp_detect_run(fn, frames, dev)
+            want = Detections(*(t.to(dev) for t in one["result"]))
+            bitwise = []
+            for r in ranks:
+                got = r[name]
+                count_launches(smoke, None, f"{path} spatial detect, rank "
+                               f"{r['rank']}", REQUESTS,
+                               counts=got["counts"])
+                g = Detections(*(t.to(dev) for t in got["result"]))
+                compare_detections(smoke, g, want,
+                                   name=f"{path} spatial detect (sp 2) vs "
+                                        f"one process, rank {r['rank']}")
+                bitwise.append(all(torch.equal(a, b)
+                                   for a, b in zip(g, want)))
+            report[name] = {
+                "ms_per_request": [r[name]["ms"] for r in ranks],
+                "one_process_ms": one["ms"],
+                "peak_gib": [r[name]["peak_gib"] for r in ranks],
+                "above_resident_gib": [r[name]["above_resident_gib"]
+                                       for r in ranks],
+                "one_process_peak_gib": one["peak_gib"],
+                "one_process_above_resident_gib": one["above_resident_gib"],
+                "bitwise": bitwise}
+            print(f"{path} spatial detect, sp 2 sharing the card: "
+                  f"{json.dumps(report[name])} {self.tag}")
+            del one, want
+        for r in ranks:
+            for check, res in r["kernels"].items():
+                if "ok" in res:
+                    smoke.check(f"{check} on a halo'd band vs plain, rank "
+                                f"{r['rank']}", res["ok"], json.dumps(res))
+            print(f"halo'd bands, rank {r['rank']}: "
+                  f"{json.dumps({k: v for k, v in r['kernels'].items() if 'ok' not in v})}")
+        single = md.single
+        for axis in ("sp", "ep"):
+            for r in ranks:
+                got = r[f"{axis}_f32_losses"]
+                rel = float(np.max(np.abs(np.subtract(got, single))
+                                   / np.abs(single)))
+                smoke.check(f"{axis} 2 float32 step vs one process, rank "
+                            f"{r['rank']}", rel < PARITY_RTOL,
+                            f"losses {got} vs {single}, relative {rel:.3g} "
+                            f"(rtol {PARITY_RTOL})")
+                c6 = r[f"{axis}_cfg6"]
+                count_launches(smoke, None, f"DyYOLO train step, {axis} 2",
+                               4, counts=c6["counts"])
+                smoke.check(f"{axis} 2 cfg6 bf16 losses finite, rank "
+                            f"{r['rank']}", bool(np.isfinite(
+                                c6["losses"]).all()) and c6["step"] > 0,
+                            f"{c6['losses']} over {c6['rows']} rows a rank")
+            report[f"{axis}_cfg6"] = {
+                k: [r[f"{axis}_cfg6"].get(k) for r in ranks]
+                for k in ("ms_per_microbatch", "peak_gib", "rows",
+                          "expert_bytes", "dyconv_bytes")}
+            print(f"cfg6 under {axis} 2 sharing the card: "
+                  f"{json.dumps(report[f'{axis}_cfg6'])} {self.tag}")
+        self.md.report["sp_ep"] = report
 
 def main() -> int:
     import torch
@@ -3091,6 +3424,12 @@ def main() -> int:
                 "group", md_one_process)
     smoke.phase("7o multi-device (b, c): two processes sharing the card "
                 "over gloo", md_two_ranks)
+
+    spep = SpatialExperts(smoke, dev, tag, md, DYYOLO)
+    smoke.phase("7p sp and ep: spatial detects, halo'd kernels, sp and ep "
+                "steps on two processes sharing the card", spep.run, detect,
+                soem_detect)
+    print(json.dumps({"multi_device": md.report}))
 
     def time_pair(name, kern, plain, lib, iters=ITERS, warmup=WARMUP,
                   plain_iters=ITERS, plain_warmup=WARMUP):

@@ -20,7 +20,8 @@ and its Trainer on a mesh, on the CPU.
 * Two processes that no launcher started: the ``Trainer`` starts the
   group from ``coordinator`` (a TCP address on this host), ``num_processes``
   and ``process_id``, over gloo.
-* ``dryrun_multichip(4)`` runs (data 2 x fsdp 2).
+* ``dryrun_multichip(4)`` runs (data 2 x fsdp 2, then data 1 x sp 2 x ep
+  2).
 """
 
 import copy
@@ -285,3 +286,7 @@ def test_dryrun_multichip_four():
     assert out["mesh"] == {"data": 2, "fsdp": 2}
     assert np.isfinite(out["loss"]) and out["local_rows"] == [2, 2, 2, 2]
     assert out["detections"] == [8, 16, 4] and out["step"] == 1
+    # the second mesh: data 1 x sp 2 x ep 2, a step and a spatial detect
+    assert out["sp_ep"]["mesh"] == {"data": 1, "sp": 2, "ep": 2}
+    assert np.isfinite(out["sp_ep"]["loss"])
+    assert out["sp_ep"]["local_rows"] == 4

@@ -341,13 +341,16 @@ def test_dryrun_multichip_two():
     assert out["mesh"] == {"data": 1, "fsdp": 2}
     assert np.isfinite(out["loss"]) and out["local_rows"] == [2, 2]
     assert out["detections"] == [4, 16, 4] and out["step"] == 1
+    assert out["sp_ep"]["mesh"] == {"data": 1, "sp": 2, "ep": 1}
+    assert np.isfinite(out["sp_ep"]["loss"])
 
 
 def test_layout_checks():
-    with pytest.raises(ValueError, match="queue 1 item 3"):
-        check_layout_supported(sp=2)
-    with pytest.raises(ValueError, match="queue 1 item 2"):
-        check_layout_supported(ep=2)
+    """``pp`` is refused, naming its ROADMAP item; ``sp`` and ``ep`` are
+    taken (tests/test_torch_spatial.py, tests/test_torch_experts.py)."""
+    check_layout_supported(sp=2)
+    check_layout_supported(ep=2)
+    check_layout_supported(sp=2, ep=2)
     with pytest.raises(ValueError, match="queue 1 item 4"):
         check_layout_supported(pp=2)
     check_layout_supported(1, 1, 1)
@@ -367,8 +370,14 @@ def test_layout_checks():
     class Mesh(dict):
         pass
 
-    mesh = Mesh(data=Sub(2), fsdp=Sub(2))
+    mesh = Mesh(data=Sub(2), fsdp=Sub(2), sp=Sub(1), ep=Sub(1))
     assert batch_group_size(mesh) == 4
     check_batch_divisible(8, mesh)
     with pytest.raises(ValueError, match="divisible"):
+        check_batch_divisible(6, mesh)
+    # the batch shards over data x fsdp x ep; the sp ranks share rows
+    mesh = Mesh(data=Sub(2), fsdp=Sub(1), sp=Sub(2), ep=Sub(2))
+    assert batch_group_size(mesh) == 4
+    check_batch_divisible(4, mesh)
+    with pytest.raises(ValueError, match="data\\*fsdp\\*ep"):
         check_batch_divisible(6, mesh)

@@ -261,16 +261,15 @@ def test_nan_guard_skips_poisoned_batch(pipes, tmp_path):
     ("devices", 2), ("fsdp_devices", 2), ("sp_devices", 2),
     ("ep_devices", 2), ("pp_devices", 2), ("multihost", True)])
 def test_multi_device_keys_raise(pipes, tmp_path, key, value):
-    """sp, ep and pp are not ported and raise, naming their ROADMAP items;
-    devices, fsdp_devices and multihost are accepted: in one process with
-    no process group (none running, none named by the environment) the
-    trainer warns as the JAX one does and trains on one device
-    (tests/test_torch_parallel.py and tests/test_torch_multihost.py run
-    them on process groups)."""
-    if key in ("sp_devices", "ep_devices", "pp_devices"):
-        item = {"ep_devices": 2, "sp_devices": 3, "pp_devices": 4}[key]
-        with pytest.raises(ValueError,
-                           match=f"ROADMAP.md queue 1 item {item}"):
+    """pp is not ported and raises, naming its ROADMAP item; devices,
+    fsdp_devices, sp_devices, ep_devices and multihost are accepted: in one
+    process with no process group (none running, none named by the
+    environment) the trainer warns as the JAX one does and trains on one
+    device (tests/test_torch_parallel.py, tests/test_torch_multihost.py,
+    tests/test_torch_spatial.py and tests/test_torch_experts.py run them on
+    process groups)."""
+    if key == "pp_devices":
+        with pytest.raises(ValueError, match="ROADMAP.md queue 1 item 4"):
             _port(tmp_path, pipes, **{key: value})
         return
     t = _port(tmp_path, pipes, train_batches=1, **{key: value})

@@ -84,7 +84,8 @@ def step_cases(state_dict, hp, size, cases, ckpt_dir) -> dict:
     checkpoint ``ckpt_dir/one``."""
     out = {}
     for name, n_fsdp, batches, grad_batches, clip, dtype in cases:
-        mesh = make_mesh(dist.get_world_size() // n_fsdp, n_fsdp, "cpu")
+        mesh = make_mesh(dist.get_world_size() // n_fsdp, n_fsdp,
+                         device_type="cpu")
         model = DyYOLO(hp.layer_config, attn_temperature=30.0)
         model.load_state_dict(state_dict)
         losses, grads, final, state = run_steps(
@@ -117,7 +118,7 @@ def detect_cases(state_dict, hp, size, frames, dual, rtm_state_dict) -> dict:
     candidates than ``max_det`` (a rank without rows); and of an
     RTMUAVDet, over ``frames`` and one frame, with ``pre_nms_topk`` below
     ``max_det``."""
-    mesh = make_mesh(dist.get_world_size(), 1, "cpu")
+    mesh = make_mesh(dist.get_world_size(), device_type="cpu")
     model = DyYOLO(hp.layer_config, attn_temperature=30.0)
     model.load_state_dict(state_dict)
     model.eval()
@@ -176,8 +177,8 @@ def two_rank_job(spec: dict) -> dict:
             m.to(memory_format=torch.channels_last)
     out["fsdp_channels_last"] = run_steps(
         model, spec["hp"], spec["size"], batches, grad_batches,
-        make_mesh(1, n_fsdp, "cpu"), clip, dtype)[2]
-    jax_mesh = make_mesh(dist.get_world_size(), 1, "cpu")
+        make_mesh(1, n_fsdp, device_type="cpu"), clip, dtype)[2]
+    jax_mesh = make_mesh(dist.get_world_size(), device_type="cpu")
     model = DyYOLO(spec["jax_hp"].layer_config, attn_temperature=30.0)
     model.load_state_dict(spec["jax_state_dict"])
     losses, _, final, _ = run_steps(model, spec["jax_hp"], spec["size"],

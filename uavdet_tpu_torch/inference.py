@@ -33,11 +33,22 @@ calls them (the detector keeps ``decode_topk_global``).
 With a ``mesh`` (``parallel.make_mesh``) every detector is the sharded
 detect of the JAX package's ``make_detector(mesh=)``: each rank takes the
 global batch, detects its own rows (``parallel.row_block`` of its place on
-the mesh) through the same detector, so kernels A, B and C run per rank on
-its rows, and the fixed-shape ``Detections`` of every rank are gathered in
-the global order onto every rank. The model must hold its full weights (a
-plain module, not an FSDP2 one: kernels A and B read the DyConv weights as
-plain tensors).
+the data x fsdp x ep axes) through the same detector, so kernels A, B and
+C run per rank on its rows, and the fixed-shape ``Detections`` of every
+rank are gathered in the global order onto every rank. The model must hold
+its full weights (a plain module, not an FSDP2 one and without ``ep``
+slices: kernels A, B and D read the expert weights as plain tensors).
+
+With ``spatial=True`` as well (the JAX ``make_detector(mesh=,
+spatial=True)``), each rank of an ``sp`` group runs the body on its band of
+the frames' rows (``parallel.row_band``): DyYOLO's stem through kernels A
+and B on the band with its halo rows, cut from the frames every rank holds
+(``ops.stem.fused_stem_rows``), then the tail with every 3x3 conv
+exchanging its halo; a DySOEM_SimFPN's SOEMs through kernel D on halo'd
+bands; a BaselineModel whole. The heads' bands are gathered over the group
+(``parallel.gather_rows``), and every rank decodes and runs kernel C on
+its rows' whole heads, once per request. Unlike the JAX package, which
+turns its Pallas stem off under a mesh, the kernels run on every rank.
 
 ``make_rtm_detector`` serves an RTMUAVDet, which ``make_detector`` does not
 take (as in the JAX package, whose only RTMUAVDet detector is the one of
@@ -59,8 +70,8 @@ from torch import nn
 from .ops.decode import decode_predictions
 from .ops.nms import batched_nms, nms_alive
 from .ops.resize import bilinear_resize
-from .ops.stem import detector_stem_fast_path
-from .utils.datatypes import Detections
+from .ops.stem import STEM_HALO, detector_stem_fast_path
+from .utils.datatypes import DetectionResults, Detections
 
 
 def preprocess(images: torch.Tensor, input_size: int,
@@ -309,13 +320,37 @@ class Detector(nn.Module):
         self.compute_dtype = compute_dtype
         self.dual = dual
         self.stem = detector_stem_fast_path(model)
+        self.sp = None   # (group, index, n) of the spatial detect
+
+    def heads(self, x) -> list:
+        """The model's heads of frames x (B, H, W, 3); under ``sp`` from the
+        rank's band of their rows, gathered over the group."""
+        stem = self.stem
+        if self.sp is None:
+            return stem.tail(stem.stem(x)) if stem is not None \
+                else self.model(x)
+        from .parallel import gather_rows, model_stride, row_band, sp_rows
+        group, index, n = self.sp
+        height = x.shape[1]
+        band = row_band(index, n, height, model_stride(self.model))
+        with sp_rows(self.model, group):
+            if stem is not None:
+                top = STEM_HALO[0] if band.start else 0
+                bottom = STEM_HALO[1] if band.stop < height else 0
+                outs = stem.tail(stem.rows(
+                    x[:, band.start - top:band.stop + bottom], top, bottom,
+                    group))
+            else:
+                outs = self.model(x[:, band.start:band.stop])
+        return [DetectionResults(bbox=gather_rows(o.bbox, group, dim=2),
+                                 obj=gather_rows(o.obj, group, dim=2))
+                for o in outs]
 
     def body(self, x) -> Detections:
         """x: frames at the detector's grid, raw uint8 (stem kernels only)
         or preprocessed."""
-        stem = self.stem
-        outs = stem.tail(stem.stem(x)) if stem is not None else self.model(x)
-        scales = [self.input_size // o.obj.shape[2] for o in outs]
+        outs = self.heads(x)
+        scales = [self.input_size // o.obj.shape[3] for o in outs]
         boxes, scores = decode_topk_global(outs, self.anchors, scales,
                                            self.pre_nms_topk)
         return select_detections(boxes, scores, self.score_threshold,
@@ -334,17 +369,23 @@ class Detector(nn.Module):
 def _on_rows(detect, model, mesh):
     """``detect(*batches)`` (each (B, ...), the detections input-major,
     n_in * B rows of K slots) as the sharded detect: this rank detects its
-    rows of every batch and every rank's detections are gathered in the
-    global order. A rank without rows detects nothing and takes part in the
-    gather; K (max_det, or fewer where fewer candidates go into the NMS)
-    then comes from the other ranks, in one more all-reduce."""
+    rows of every batch (its block over data x fsdp x ep) and every rank's
+    detections are gathered in the global order (one rank of each ``sp``
+    group: its ranks hold the same rows). A rank without rows detects
+    nothing and takes part in the gather; K (max_det, or fewer where fewer
+    candidates go into the NMS) then comes from the other ranks, in one
+    more all-reduce."""
     import torch.distributed as dist
-    from .parallel import all_gather_rows, batch_group, batch_index, row_block
+    from .parallel import (all_gather_rows, batch_group, batch_group_size,
+                           batch_index, coordinate, row_block)
+    world = mesh.size()
+    firsts = [r for r in range(world) if coordinate(mesh, r)[2] == 0]
 
     @torch.inference_mode()
     def run(*batches) -> Detections:
         b, n_in = len(batches[0]), len(batches)
-        blocks = [row_block(i, mesh.size(), b) for i in range(mesh.size())]
+        groups = batch_group_size(mesh)
+        blocks = [row_block(i, groups, b) for i in range(groups)]
         mine = blocks[batch_index(mesh)]
         device = next(model.parameters()).device
         if len(mine):
@@ -361,8 +402,11 @@ def _on_rows(detect, model, mesh):
                             group=batch_group(mesh))
             k = int(slots)
         packed = packed.reshape(n_in, len(mine), k, 6).transpose(0, 1)
-        full = all_gather_rows(packed, [len(r) for r in blocks],
-                               batch_group(mesh))
+        counts = [len(blocks[batch_index(mesh, r)]) for r in range(world)]
+        full = all_gather_rows(packed, counts, batch_group(mesh))
+        if len(firsts) < world:   # one rank of each sp group
+            at = np.cumsum([0] + counts)
+            full = torch.cat([full[at[r]:at[r + 1]] for r in firsts])
         full = full.transpose(0, 1).reshape(n_in * b, k, 6)
         return Detections(boxes=full[..., :4], scores=full[..., 4],
                           valid=full[..., 5] > 0)
@@ -370,11 +414,19 @@ def _on_rows(detect, model, mesh):
     return run
 
 
+def _check_full_weights(model) -> None:
+    if any(getattr(p, "ep_slice", None) is not None
+           for p in model.parameters()):
+        raise ValueError("the detector takes a model with its full expert "
+                         "weights; this one holds ep slices (gather them "
+                         "into a plain copy with parallel.copy_full_weights)")
+
+
 def make_detector(model, hparams, input_size: int,
                   score_threshold: float = 0.001, nms_iou: float = 0.5,
                   pre_nms_topk: int = 512, max_det: int = 300,
                   compute_dtype: torch.dtype = torch.bfloat16,
-                  dual: bool = False, mesh=None):
+                  dual: bool = False, mesh=None, spatial: bool = False):
     """``detect(images) -> Detections`` for NHWC frames (B, H, W, 3), uint8
     at any resolution or float in [0, 1]. The weights are ``model``'s own,
     read at every call; frames are moved to the model's device.
@@ -391,9 +443,26 @@ def make_detector(model, hparams, input_size: int,
 
     ``mesh``: the sharded detect (see the module docstring); every rank
     passes the global batch (or batches) and gets the global detections.
+    ``spatial``: each rank of the mesh's ``sp`` axis runs its band of the
+    rows (see the module docstring); it needs a ``mesh`` with that axis,
+    and ``input_size`` a multiple of sp x the model's largest stride.
     """
     det = Detector(model, hparams, input_size, score_threshold, nms_iou,
                    pre_nms_topk, max_det, compute_dtype, dual)
+    if spatial:
+        from .parallel import coordinate, model_stride, row_band, sp_group
+        if mesh is None:
+            raise ValueError("spatial=True requires mesh")
+        if "sp" not in (mesh.mesh_dim_names or ()):
+            raise ValueError("spatial=True needs an 'sp' mesh axis (mesh "
+                             f"has {mesh.mesh_dim_names}); build the mesh "
+                             "with parallel.make_mesh(..., n_sp=...)")
+        n = mesh["sp"].size()
+        row_band(0, n, input_size, model_stride(model))
+        if n > 1:
+            det.sp = (sp_group(mesh), coordinate(mesh)[2], n)
+    if mesh is not None:
+        _check_full_weights(model)
 
     @torch.inference_mode()
     def detect(images) -> Detections:
@@ -430,7 +499,7 @@ def make_rtm_detector(model, input_size: int, det_scales: Sequence[int],
                       pre_nms_topk: int = 512, nms_iou: float = 0.5,
                       max_det: int = 300,
                       compute_dtype: torch.dtype | None = None,
-                      alive_fn=nms_alive, mesh=None):
+                      alive_fn=nms_alive, mesh=None, spatial: bool = False):
     """``detect(images) -> Detections`` for an RTMUAVDet in eval mode: the
     unfolded detect of the JAX package's cfg4 (``bench.py:158-186``) with
     the boxes kept beside the scores. NHWC frames (B, H, W, 3), uint8 or
@@ -438,7 +507,12 @@ def make_rtm_detector(model, input_size: int, det_scales: Sequence[int],
     (the scores are the heads' probabilities); invalid slots are zero.
     ``compute_dtype`` None is the model's own; ``alive_fn`` is the NMS
     survivor mask (``nms_alive_plain`` holds the kernel against the plain
-    path); ``mesh`` the sharded detect, as ``make_detector``'s."""
+    path); ``mesh`` the sharded detect, as ``make_detector``'s. There is no
+    RTMUAVDet under ``sp`` (nor in the JAX package): ``spatial`` raises."""
+    if spatial:
+        raise ValueError("make_rtm_detector has no spatial (sp) detect: the "
+                         "JAX package serves RTMUAVDet only whole (bench.py's "
+                         "cfg4); pass spatial=False and shard the batch")
 
     @torch.inference_mode()
     def detect(images) -> Detections:

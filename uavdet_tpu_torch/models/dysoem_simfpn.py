@@ -28,7 +28,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.dyconv import dyconv, mixed_bias, mixed_kernel, parity_sums
-from .layers import BatchNorm2d, ConvModule, YOLOHead
+from ..parallel.experts import mix_slices
+from ..parallel.spatial import halo_for_conv, sp_sum
+from .layers import BatchNorm2d, ConvModule, YOLOHead, global_mean
 
 
 class InputStemLayer(ConvModule):
@@ -59,12 +61,34 @@ def space_to_depth(x: torch.Tensor, k: int = 2) -> torch.Tensor:
     return x.reshape(b, h // k, w // k, k * k * c)
 
 
-def pooled_from_sums(out: torch.Tensor, sums: torch.Tensor) -> torch.Tensor:
+def pooled_from_sums(out: torch.Tensor, sums: torch.Tensor,
+                     n_sp: int = 1) -> torch.Tensor:
     """The channel means of ``space_to_depth(out)`` (B, 4 Co), in out's
     dtype, from the (B, 2, 2, Co) parity-split sums of out (B, H, W, Co): the
-    ``pooled`` of the SOEM that consumes ``out``."""
+    ``pooled`` of the SOEM that consumes ``out``. Under ``sp`` ``out`` is one
+    of ``n_sp`` bands and ``sums`` the whole image's."""
     b, h, w, c = out.shape
-    return (sums.reshape(b, 4 * c) / float((h // 2) * (w // 2))).to(out.dtype)
+    return (sums.reshape(b, 4 * c)
+            / float(n_sp * (h // 2) * (w // 2))).to(out.dtype)
+
+
+def _column_parity_sums(row: torch.Tensor) -> torch.Tensor:
+    """(B, W, Co) one row -> (B, 2, Co) f32 sums by column parity."""
+    r = row.float()
+    return torch.stack([r[:, 0::2].sum(1), r[:, 1::2].sum(1)], dim=1)
+
+
+def own_rows_sums(sums: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """Kernel D's ``emit_gap`` sums (B, 2, 2, Co) of a band convolved with
+    one halo row on each side (``out``: its h + 2 output rows, the first
+    and last the halo's) -> the sums of the band's own h rows, by global
+    row parity. The band starts on an even global row, so the kernel's
+    first row (the halo above) has odd global parity and the parities of
+    the rest are the kernel's flipped."""
+    own = sums.flip(1)
+    top = _column_parity_sums(out[:, 0])
+    bottom = _column_parity_sums(out[:, -1])
+    return torch.stack([own[:, 0] - bottom, own[:, 1] - top], dim=1)
 
 
 class Experts(nn.Module):
@@ -96,12 +120,19 @@ class DynamicSOEM(nn.Module):
 
     ``pooled``: the attention's input, the channel means of the
     space-to-depth'd map (B, 4C), when the producer of ``x`` already has
-    them. ``emit_gap``: also return the f32 sums of the output by (row
+    them. ``sp_group`` (``parallel.spatial``): ``x`` is a band of the
+    image's rows; the pool is the whole image's, the conv (the kernel's
+    too) takes one halo row on each side and its output is cropped, and the
+    ``emit_gap`` sums are the band's own rows' summed over the group. Where
+    the experts are ``ep`` slices (``parallel.experts``) the per-sample
+    kernel and bias are mixed over the ``ep`` group. ``emit_gap``: also return the f32 sums of the output by (row
     parity, column parity, channel), (B, 2, 2, Co), from which the next
     SOEM's ``pooled`` follows without reading the map again. ``conv`` is
     the kernel; a caller that holds it against its plain version passes
     ``dyconv_plain``.
     """
+
+    sp_group = None
 
     def __init__(self, in_channels: int, num_dy_conv: int = 3,
                  dy_kernel_size: int = 3, downsample_factor: int = 2,
@@ -126,36 +157,68 @@ class DynamicSOEM(nn.Module):
         acc = torch.promote_types(a.dtype, torch.float32)
         return torch.softmax(a.to(acc) / attn_temp, dim=-1)
 
+    def mixed(self, attn: torch.Tensor, dtype=None):
+        """(B, E) attentions -> the per-sample kernel (B, ks*ks, C, Co) and
+        bias (B, Co), from the experts cast to ``dtype`` (None: their
+        own)."""
+        kernel, bias = self.experts.kernel, self.experts.bias
+        if dtype is not None and getattr(kernel, "ep_slice", None) is None:
+            kernel, bias = kernel.to(dtype), bias.to(dtype)
+        oc = self.out_channels
+        if getattr(kernel, "ep_slice", None) is None:
+            return mixed_kernel(kernel, attn, oc), mixed_bias(bias, attn, oc)
+        k, bias = mix_slices(attn, [kernel, bias])   # k (B, Co, ks, ks, C)
+        b, _, kh, kw, c = k.shape
+        return k.permute(0, 2, 3, 4, 1).reshape(b, kh * kw, c, oc), bias
+
     def forward(self, x, attn_temp: float = 1.0, pooled=None,
                 emit_gap: bool = False, conv=dyconv):
         f = space_to_depth(x, self.downsample_factor)
         b, h, w, c = f.shape
         oc, ks = self.out_channels, self.dy_kernel_size
+        group = self.sp_group
         if pooled is None:
-            acc = torch.promote_types(f.dtype, torch.float32)
-            pooled = f.mean(dim=(1, 2), dtype=acc).to(f.dtype)
+            if group is None:
+                acc = torch.promote_types(f.dtype, torch.float32)
+                pooled = f.mean(dim=(1, 2), dtype=acc).to(f.dtype)
+            else:
+                pooled = global_mean(f, (1, 2), group)
         attn = self.attention_weights(pooled, attn_temp)
         if (f.dtype == torch.bfloat16 and not self.training and ks != 3
                 and f.device.type != "cpu"):
             raise RuntimeError(
                 f"DynamicSOEM serves bfloat16 on {f.device} through the "
                 f"dyconv kernel only, which takes 3x3 experts; got {ks}x{ks}")
+        if group is not None:
+            f = halo_for_conv(f, ks, 1, ks // 2, group, dim=1)
         if f.dtype == torch.bfloat16 and ks == 3 and not self.training:
             bn = self.bn
             mul = bn.weight.float() * torch.rsqrt(bn.running_var.float()
                                                   + bn.eps)
+            k, bias = self.mixed(attn, torch.float32)
             add = (bn.bias.float() - bn.running_mean.float() * mul)[None] \
-                + mixed_bias(self.experts.bias.float(), attn, oc) * mul
-            k = mixed_kernel(self.experts.kernel.float(), attn, oc)
-            return conv(f, k.to(torch.bfloat16), mul, add, emit_gap=emit_gap)
+                + bias.float() * mul
+            res = conv(f, k.float().to(torch.bfloat16), mul, add,
+                       emit_gap=emit_gap)
+            if group is None:
+                return res
+            out, sums = res if emit_gap else (res, None)
+            y = out[:, 1:-1]
+            if emit_gap:
+                return y, sp_sum(own_rows_sums(sums, out), group)
+            return y
         attn = attn.to(f.dtype)
-        k = mixed_kernel(self.experts.kernel, attn, oc)   # (B, ks*ks, C, Co)
-        y = F.conv2d(f.permute(0, 3, 1, 2).reshape(1, b * c, h, w),
+        k, bias = self.mixed(attn)   # (B, ks*ks, C, Co), (B, Co)
+        fh = f.shape[1]
+        y = F.conv2d(f.permute(0, 3, 1, 2).reshape(1, b * c, fh, w),
                      k.permute(0, 3, 2, 1).reshape(b * oc, c, ks, ks),
-                     mixed_bias(self.experts.bias, attn, oc).reshape(b * oc),
-                     padding=ks // 2, groups=b)
+                     bias.reshape(b * oc),
+                     padding=(0 if group is not None else ks // 2, ks // 2),
+                     groups=b)
         y = F.silu(self.bn(y.reshape(b, oc, h, w))).permute(0, 2, 3, 1)
-        return (y, parity_sums(y)) if emit_gap else y
+        if not emit_gap:
+            return y
+        return y, sp_sum(parity_sums(y), group)
 
 
 class SimplifiedFPN(nn.Module):
@@ -234,11 +297,13 @@ class DySOEM_SimFPN(nn.Module):
         x = self.input_stem(x).permute(0, 2, 3, 1)
         feats, pooled = [], None
         soems = self.soems
+        group = soems[0].sp_group if soems else None
+        n_sp = 1 if group is None else torch.distributed.get_world_size(group)
         for i, soem in enumerate(soems):
             emit = i + 1 < len(soems)
             res = soem(x, self.attn_temperature, pooled=pooled, emit_gap=emit,
                        conv=conv)
             x, sums = res if emit else (res, None)
-            pooled = pooled_from_sums(x, sums) if emit else None
+            pooled = pooled_from_sums(x, sums, n_sp) if emit else None
             feats.append(x.permute(0, 3, 1, 2))
         return self.yolo_head(self.neck(feats))

@@ -8,13 +8,39 @@ checkpoint loads with ``load_state_dict`` as it is. Tensors inside are NCHW
 reference's (B, A, H, W, C) layout.
 """
 
+import math
+
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from ..parallel.batchnorm import global_batch_norm
+from ..parallel.experts import mix_slices
+from ..parallel.spatial import conv2d_rows, halo_for_conv, sp_sum
 from ..utils.datatypes import DetectionResults
+
+
+def conv_rows(conv: nn.Conv2d, x: torch.Tensor, sp_group) -> torch.Tensor:
+    """``conv(x)``, or with ``sp_group`` the same conv of a band of rows
+    (``parallel.spatial.conv2d_rows``)."""
+    if sp_group is None:
+        return conv(x)
+    return conv2d_rows(x, conv.weight, conv.bias, conv.stride[0],
+                       conv.padding[0], conv.groups, sp_group)
+
+
+def global_mean(x: torch.Tensor, dims, sp_group) -> torch.Tensor:
+    """``x.mean(dims)`` over the whole image where ``x`` holds a band of its
+    rows (dims must include the rows, dim -2 of NCHW or 1 of NHWC): the sum
+    over the ``sp`` group divided by the global count, in x's dtype, summed
+    in float32 at least."""
+    if sp_group is None:
+        return x.mean(dim=dims)
+    n = dist.get_world_size(sp_group)
+    count = n * math.prod(x.shape[d] for d in dims)
+    acc = torch.promote_types(x.dtype, torch.float32)
+    return (sp_sum(x.sum(dim=dims, dtype=acc), sp_group) / count).to(x.dtype)
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -54,7 +80,9 @@ class BatchNorm2d(nn.BatchNorm2d):
 
 
 class CNNBlock(nn.Module):
-    """Conv -> BN -> LeakyReLU(0.1)."""
+    """Conv -> BN -> LeakyReLU(0.1). ``sp_group``: see ``conv_rows``."""
+
+    sp_group = None
 
     def __init__(self, c_in: int, c_out: int, kernel_size: int = 3,
                  stride: int = 1, padding: int = 0):
@@ -64,11 +92,15 @@ class CNNBlock(nn.Module):
         self.bn = BatchNorm2d(c_out)
 
     def forward(self, x):
-        return F.leaky_relu(self.bn(self.conv(x)), 0.1)
+        return F.leaky_relu(self.bn(conv_rows(self.conv, x, self.sp_group)),
+                            0.1)
 
 
 class ConvModule(nn.Module):
-    """Conv (no bias) -> BN -> SiLU (``uavdet_tpu/models/layers.py:88``)."""
+    """Conv (no bias) -> BN -> SiLU (``uavdet_tpu/models/layers.py:88``).
+    ``sp_group``: see ``conv_rows``."""
+
+    sp_group = None
 
     def __init__(self, c_in: int, c_out: int, kernel_size: int = 1,
                  stride: int = 1, padding: int = 0):
@@ -78,7 +110,7 @@ class ConvModule(nn.Module):
         self.bn = BatchNorm2d(c_out)
 
     def forward(self, x):
-        return F.silu(self.bn(self.conv(x)))
+        return F.silu(self.bn(conv_rows(self.conv, x, self.sp_group)))
 
 
 class ResidualBlock(nn.Module):
@@ -120,7 +152,14 @@ class DyConvModule(nn.Module):
     3x3: mix the per-sample kernel, then one grouped conv (groups = batch),
     as the reference does. 1x1: mix first, then one batched matmul
     (``uavdet_tpu/models/layers.py:217-225``).
+
+    ``sp_group`` (``parallel.spatial``): x is a band of the image's rows; the
+    pool is over the whole image and the 3x3 conv exchanges its halo. Where
+    ``weights`` is an ``ep`` slice (``parallel.experts``), the per-sample
+    kernels are mixed over the ``ep`` group (``mix_slices``).
     """
+
+    sp_group = None
 
     def __init__(self, c_in: int, c_out: int, kernel_size: int = 3,
                  stride: int = 1, padding: int = 0, num_experts: int = 4):
@@ -140,33 +179,53 @@ class DyConvModule(nn.Module):
 
     def attention_weights(self, pooled: torch.Tensor,
                           attn_temp: float) -> torch.Tensor:
-        """(B, C) channel means -> (B, E) f32 softmax expert weights."""
+        """(B, C) channel means -> (B, E) softmax expert weights, in f32 or
+        the means' dtype above it (as the JAX layer's ``promote_types``)."""
         fc1, fc2 = self.attention[1], self.attention[3]
         a = F.relu(F.linear(pooled, fc1.weight.flatten(1).to(pooled.dtype)))
         a = F.linear(a, fc2.weight.flatten(1).to(a.dtype),
                      fc2.bias.to(a.dtype))
-        return torch.softmax(a.float() / attn_temp, dim=-1)
+        acc = torch.promote_types(a.dtype, torch.float32)
+        return torch.softmax(a.to(acc) / attn_temp, dim=-1)
+
+    def mixed(self, attn: torch.Tensor) -> torch.Tensor:
+        """(B, E) attentions -> the per-sample kernels (B, O, I, k, k)."""
+        if getattr(self.weights, "ep_slice", None) is not None:
+            return mix_slices(attn, [self.weights])[0]
+        return torch.einsum("eoikl,be->boikl", self.weights, attn)
 
     def forward(self, x, attn_temp: float):
         b, c, h, w = x.shape
-        e, o, _, k, _ = self.weights.shape
-        attn = self.attention_weights(x.mean(dim=(2, 3)), attn_temp)
+        o, k = self.bn.num_features, self.weights.shape[-1]
+        attn = self.attention_weights(global_mean(x, (2, 3), self.sp_group),
+                                      attn_temp)
         attn = attn.to(x.dtype)
         if k == 1 and self.stride == 1 and self.padding == 0:
-            kb = torch.einsum("eoi,be->bio", self.weights[..., 0, 0], attn)
+            if getattr(self.weights, "ep_slice", None) is not None:
+                kb = self.mixed(attn)[..., 0, 0].transpose(1, 2)
+            else:
+                kb = torch.einsum("eoi,be->bio", self.weights[..., 0, 0],
+                                  attn)
             # NHWC rows: a view when x is channels_last
             y = torch.bmm(x.permute(0, 2, 3, 1).reshape(b, h * w, c), kb)
             y = y.reshape(b, h, w, o).permute(0, 3, 1, 2)
         elif b == 0:
             # a rank without rows (a short batch over ranks): the same
             # graph of parameters, an empty output
-            kb = torch.einsum("eoikl,be->boikl", self.weights, attn)
+            kb = self.mixed(attn)
             y = F.conv2d(x, kb.sum(0), stride=self.stride,
                          padding=self.padding)
         else:
-            kb = torch.einsum("eoikl,be->boikl", self.weights, attn)
-            y = F.conv2d(x.reshape(1, b * c, h, w), kb.reshape(b * o, c, k, k),
-                         stride=self.stride, padding=self.padding, groups=b)
+            kb = self.mixed(attn)
+            if self.sp_group is not None:
+                x = halo_for_conv(x, k, self.stride, self.padding,
+                                  self.sp_group)
+                pad = (0, self.padding)
+            else:
+                pad = self.padding
+            y = F.conv2d(x.reshape(1, b * c, x.shape[2], w),
+                         kb.reshape(b * o, c, k, k),
+                         stride=self.stride, padding=pad, groups=b)
             y = y.reshape(b, o, y.shape[-2], y.shape[-1])
             if y.is_cuda:
                 # channels_last, as the rest of the network on the card:

@@ -11,12 +11,19 @@ then summed over heads and averaged over the batch. The masked means are per
 cell's target; 'col0' is the reference's exact ``ious[:, 0]``: every
 positive prediction against the first positive target of its (sample, head)
 in (A, S, S) order.
+
+Under ``sp`` (``sp_group``) the heads and targets are a band of the grid's
+rows, from ``row_offsets[h]`` on: every masked mean sums its numerator and
+denominator over the group before it divides (``parallel.sp_sum``), so the
+loss is the whole image's on every rank of the group. 'col0' has no such
+form and raises there.
 """
 
 from typing import NamedTuple, Sequence
 
 import torch
 
+from ..parallel.spatial import sp_sum
 from .boxes import box_convert, box_iou_elementwise, complete_box_iou
 from .decode import add_grid_offsets, decode_predictions, normalize_target_wh
 
@@ -35,13 +42,16 @@ class LossBreakdown(NamedTuple):
     obj: torch.Tensor
 
 
-def _masked_mean_per_sample(x: torch.Tensor,
-                            mask: torch.Tensor) -> torch.Tensor:
+def _masked_mean_per_sample(x: torch.Tensor, mask: torch.Tensor,
+                            sp_group=None) -> torch.Tensor:
     """Mean of x over all non-batch dims where mask, per sample -> (B,);
-    the count is clamped to 1 for an empty mask."""
+    the count is clamped to 1 for an empty mask. With ``sp_group`` the
+    numerator and the count are summed over the group first."""
     dims = tuple(range(1, x.ndim))
     num = torch.sum(torch.where(mask, x, 0.0), dim=dims)
     den = torch.sum(torch.broadcast_to(mask, x.shape).to(x.dtype), dim=dims)
+    if sp_group is not None:
+        num, den = sp_sum(torch.stack([num, den]), sp_group).unbind(0)
     return num / torch.clamp_min(den, 1.0)
 
 
@@ -49,12 +59,18 @@ def yolo_loss(outs: Sequence, target_grids: Sequence[torch.Tensor], anchors,
               head_scales: Sequence[int], obj_scales_w: Sequence[float],
               bbox_w: float, objectness_w: float, no_obj_w: float,
               bbox_loss_fn: str = "mse",
-              iou_mode: str = "elementwise") -> LossBreakdown:
+              iou_mode: str = "elementwise", sp_group=None,
+              row_offsets: Sequence[int] | None = None) -> LossBreakdown:
     """The total YOLO loss over all heads. ``outs``: per head (bbox, obj)
     logits (B, A, S, S, 4|1); ``target_grids``: per head (B, A, S, S, 5);
     ``anchors`` (H, A, 2) in pixels (a tensor already on the predictions'
     device is not copied). Computed in the predictions' dtype floored at
-    float32."""
+    float32. ``sp_group``, ``row_offsets``: see the module docstring."""
+    if sp_group is not None and iou_mode == "col0":
+        raise ValueError("iou_mode 'col0' pairs every prediction with the "
+                         "first target of the whole grid; it has no form "
+                         "over bands of rows (sp)")
+    row_offsets = row_offsets or (0,) * len(outs)
     dtype = torch.promote_types(outs[0].obj.dtype, torch.float32)
     device = outs[0].obj.device
     anchors = torch.as_tensor(anchors, device=device).to(dtype)
@@ -71,7 +87,8 @@ def yolo_loss(outs: Sequence, target_grids: Sequence[torch.Tensor], anchors,
         t_bbox_raw = grid[..., 1:5]
         pos = t_obj == 1.0
 
-        decoded = decode_predictions(p_bbox, scaled_anchors, bbox_loss_fn)
+        decoded = decode_predictions(p_bbox, scaled_anchors, bbox_loss_fn,
+                                     row_offsets[h])
 
         # IoU soft labels, detached
         iou_pred = decoded.detach()
@@ -94,27 +111,29 @@ def yolo_loss(outs: Sequence, target_grids: Sequence[torch.Tensor], anchors,
         if bbox_loss_fn == "mse":
             t_built = normalize_target_wh(t_bbox_raw, scaled_anchors)
         else:
-            t_built = add_grid_offsets(t_bbox_raw)
+            t_built = add_grid_offsets(t_bbox_raw, row_offsets[h])
 
         # box loss, masked mean per sample
         if bbox_loss_fn == "mse":
             sq = (decoded - t_built) ** 2
-            per_sample = _masked_mean_per_sample(sq, pos[..., None])
+            per_sample = _masked_mean_per_sample(sq, pos[..., None],
+                                                 sp_group)
         else:
             ciou_l = 1.0 - complete_box_iou(
                 box_convert(decoded, "cxcywh", "xyxy"),
                 box_convert(t_built, "cxcywh", "xyxy"))
-            per_sample = _masked_mean_per_sample(ciou_l, pos)
+            per_sample = _masked_mean_per_sample(ciou_l, pos, sp_group)
         bbox_losses = bbox_losses + bbox_w * per_sample
 
         # objectness loss
         soft = ious.detach() * t_obj
         bce = bce_with_logits(p_obj, soft)
         obj_losses = obj_losses + (objectness_w * obj_scales_w[h]
-                                   * _masked_mean_per_sample(bce, pos))
+                                   * _masked_mean_per_sample(bce, pos,
+                                                             sp_group))
         bce_neg = bce_with_logits(p_obj, t_obj)   # t_obj == 0 on ~pos
         obj_losses = obj_losses + no_obj_w * _masked_mean_per_sample(
-            bce_neg, ~pos)
+            bce_neg, ~pos, sp_group)
 
     bbox_total = torch.mean(bbox_losses)
     obj_total = torch.mean(obj_losses)

@@ -41,9 +41,11 @@ one raises. ``stem_l2_stage`` is a measuring aid and stays a plain function.
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from .. import kernels
+from ..parallel.spatial import sp_sum
 
 _BF16 = torch.bfloat16
 
@@ -65,18 +67,26 @@ def mix_and_fold(weights: torch.Tensor, attn: torch.Tensor,
                       bias[None, :, None].expand(attn.shape[0], o, 1)], dim=-1)
 
 
-def stem_l1_weights(x: torch.Tensor, dyconv, attn_temp: float) -> torch.Tensor:
+def stem_l1_weights(x: torch.Tensor, dyconv, attn_temp: float,
+                    sp_group=None) -> torch.Tensor:
     """K1 (B, 32, 28) f32 for frames x (B, H, W, 3), uint8 or float in [0, 1].
 
     For uint8 the attention pools the bytes (an exact integer sum) and the
     1/255 of the normalization is folded into the 27 tap columns; the bias
-    column is not scaled.
+    column is not scaled. With ``sp_group`` x is a band of the frames' rows
+    and the pool is summed over the group (the bytes' sum stays an exact
+    integer sum).
     """
     b, h, w, _ = x.shape
+    n = 1 if sp_group is None else dist.get_world_size(sp_group)
     if x.dtype == torch.uint8:
-        pooled = x.sum(dim=(1, 2)).float() / float(h * w * 255.0)
-    else:
+        pooled = sp_sum(x.sum(dim=(1, 2)), sp_group).float() / float(
+            n * h * w * 255.0)
+    elif sp_group is None:
         pooled = x.float().mean(dim=(1, 2))
+    else:
+        pooled = sp_sum(x.float().sum(dim=(1, 2)), sp_group) / float(
+            n * h * w)
     k1 = mix_and_fold(dyconv.weights, dyconv.attention_weights(
         pooled, attn_temp), dyconv.bn)
     if x.dtype == torch.uint8:
@@ -325,12 +335,47 @@ def fused_stem_forward(x: torch.Tensor, dy0, dy1, attn_temp: float,
     return l2(a1, stem_l2_weights(sums, h * w, dy1, attn_temp))
 
 
+# halo rows of the frames that the stem takes on a band of rows: two above
+# (kernel B's band of a1 must start on an even row, one row before the
+# band's first; kernel A needs one more above it) and one below
+STEM_HALO = (2, 1)
+
+
+@torch.no_grad()   # inference only: the kernels have no backward
+def fused_stem_rows(x: torch.Tensor, top: int, bottom: int, dy0, dy1,
+                    attn_temp: float, sp_group, l1=stem_l1,
+                    l2=stem_l2) -> torch.Tensor:
+    """``fused_stem_forward`` on a band of the frames' rows (``sp``).
+
+    x: (B, top + h + bottom, W, 3), the band of h rows with ``top`` rows
+    above it and ``bottom`` below: ``STEM_HALO``, or 0 where the band is at
+    the image's edge. -> the band's rows of the stem's output, (B, h/2,
+    ceil(W/2), 64) bf16 NHWC (h even). Kernel A runs on all of x: its first
+    and last rows see its own zero padding and are not used, save that
+    kernel B reads the first (at top 2) only for an output row that is
+    dropped. The attention pools are the whole image's: the frame pool and
+    kernel A's channel sums (the halo rows' sums taken out) are summed over
+    ``sp_group``.
+    """
+    _, hh, w, _ = x.shape
+    h = hh - top - bottom
+    n = dist.get_world_size(sp_group)
+    a1, sums = l1(x, stem_l1_weights(x[:, top:top + h], dy0, attn_temp,
+                                     sp_group))
+    halo = torch.cat([a1[:, :top], a1[:, top + h:]], dim=1)
+    own = sums - halo.float().sum(dim=(1, 2))
+    k2 = stem_l2_weights(sp_sum(own, sp_group), n * h * w, dy1, attn_temp)
+    return l2(a1[:, :top + h], k2)[:, top // 2:]
+
+
 class StemFastPath(NamedTuple):
     """The pieces the detector composes: ``tail(stem(frames))`` are the
-    model's per-head outputs."""
+    model's per-head outputs; ``rows(x, top, bottom, group)`` is ``stem``
+    on a band of rows (``fused_stem_rows``)."""
 
     stem: object   # (B, H, W, 3) frames -> (B, H/2, W/2, 64) bf16 NHWC
     tail: object   # that activation -> list of DetectionResults
+    rows: object = None
 
 
 STEM_TOKENS = (("DyConv", 32, 3, 1), ("DyConv", 64, 3, 2))
@@ -351,4 +396,7 @@ def detector_stem_fast_path(model) -> StemFastPath | None:
     def tail(a):
         return model(a, start=len(STEM_TOKENS))
 
-    return StemFastPath(stem, tail)
+    def rows(x, top, bottom, group):
+        return fused_stem_rows(x, top, bottom, dy0, dy1, temp, group)
+
+    return StemFastPath(stem, tail, rows)

@@ -16,9 +16,11 @@ tails of the logs. -> each rank's return value (pickled through a file).
 ranks on the card with ``device="cuda"``) run one sharded train step of a
 tiny DyYOLO (``TINY_CONFIG``, a copy of ``__graft_entry__.TINY_CONFIG``) at
 64 px, batch 2n, over data x fsdp (fsdp 2 where n is even, as the JAX
-dry-run), then a sharded detect of the same model. The JAX dry-run's
-``sp`` mesh, its ``ep`` and its ``pp`` parts are left out until those axes
-are ported.
+dry-run), then a sharded detect of the same model; then, where n is even,
+the JAX dry-run's second mesh, data x sp x ep (sp 2, ep 2 where n / 2 is
+even): one train step of a fresh model placed on it and one spatial detect
+(``make_detector(mesh=, spatial=True)``) of its weights. The JAX dry-run's
+``pp`` part is left out until that axis is ported.
 
     python -m uavdet_tpu_torch.parallel.dryrun --devices 4 [--device cuda]
 """
@@ -134,7 +136,7 @@ def dryrun_rank(device: str = "cpu", size: int = 64) -> dict:
 
     n = dist.get_world_size()
     n_fsdp = 2 if n % 2 == 0 else 1
-    mesh = make_mesh(n // n_fsdp, n_fsdp, torch.device(device).type)
+    mesh = make_mesh(n // n_fsdp, n_fsdp, device_type=torch.device(device).type)
     dev = local_device(device)
     hp = SimpleNamespace(**dict(vars(DYYOLO), layer_config=TINY_CONFIG))
     model = seeded_model("DyYOLO", hp, 0, dev, dtype=torch.float32)
@@ -161,11 +163,41 @@ def dryrun_rank(device: str = "cpu", size: int = 64) -> dict:
     detect = make_detector(plain.eval(), hp, size,
                            compute_dtype=torch.float32, pre_nms_topk=64,
                            max_det=16, mesh=mesh)
-    det = detect((images * 255).astype(np.uint8))
-    return {"loss": loss, "mesh": {"data": n // n_fsdp, "fsdp": n_fsdp},
-            "local_rows": len(mine.image), "detections": list(det.boxes.shape),
-            "valid": int(det.valid.sum()), "step": state.step,
-            "device": str(dev)}
+    frames = (images * 255).astype(np.uint8)
+    det = detect(frames)
+    out = {"loss": loss, "mesh": {"data": n // n_fsdp, "fsdp": n_fsdp},
+           "local_rows": len(mine.image), "detections": list(det.boxes.shape),
+           "valid": int(det.valid.sum()), "step": state.step,
+           "device": str(dev)}
+    if n % 2 == 0:   # mesh 2: data x sp x ep
+        n_ep = 2 if (n // 2) % 2 == 0 else 1
+        mesh2 = make_mesh(n // (2 * n_ep), 1, 2, n_ep,
+                          device_type=torch.device(device).type)
+        model = seeded_model("DyYOLO", hp, 0, dev, dtype=torch.float32)
+        plain = copy.deepcopy(model)
+        placed = shard_model(model, mesh2)
+        state = init_state(placed, *build_optimizer(placed.parameters(), hp))
+        step = make_train_step(placed, hp, size, mesh=mesh2)
+        mine = shard_host_batch(
+            BatchData(*(torch.from_numpy(a) for a in (
+                images, boxes, np.ones((batch, 1), bool)))),
+            local_batch_rows(mesh2, batch))
+        sp_loss = float(step(state, BatchData(*(t.to(dev) for t in mine)))
+                        ["loss"])
+        if not np.isfinite(sp_loss):
+            raise FloatingPointError(f"non-finite sp x ep loss {sp_loss}")
+        copy_full_weights(placed, plain)
+        det = make_detector(plain.eval(), hp, size,
+                            compute_dtype=torch.float32, pre_nms_topk=64,
+                            max_det=16, mesh=mesh2, spatial=True)(frames)
+        if not bool(torch.isfinite(det.scores).all()):
+            raise FloatingPointError("non-finite spatial detect scores")
+        out["sp_ep"] = {"loss": sp_loss,
+                        "mesh": {"data": n // (2 * n_ep), "sp": 2,
+                                 "ep": n_ep},
+                        "local_rows": len(mine.image),
+                        "valid": int(det.valid.sum())}
+    return out
 
 
 def dryrun_multichip(n_devices: int, device: str = "cpu",
@@ -175,8 +207,8 @@ def dryrun_multichip(n_devices: int, device: str = "cpu",
     reports = launch("uavdet_tpu_torch.parallel.dryrun:dryrun_rank",
                      n_devices, args=(device,), device=device,
                      timeout=timeout)
-    for key in ("loss", "detections", "valid"):
-        if len({json.dumps(r[key]) for r in reports}) != 1:
+    for key in ("loss", "detections", "valid", "sp_ep"):
+        if len({json.dumps(r.get(key)) for r in reports}) != 1:
             raise RuntimeError(f"the ranks disagree on {key}: "
                                f"{[r[key] for r in reports]}")
     out = dict(reports[0])

@@ -20,7 +20,7 @@ import os
 import torch
 import torch.distributed as dist
 
-from .mesh import batch_index, row_block
+from .mesh import batch_group_size, batch_index, row_block
 
 
 def local_device(device="cuda") -> torch.device:
@@ -78,7 +78,8 @@ def mesh_from_env(device="cuda"):
     from .mesh import make_mesh
     if not init_multihost(device=device) or dist.get_world_size() == 1:
         return None
-    return make_mesh(dist.get_world_size(), 1, torch.device(device).type)
+    return make_mesh(dist.get_world_size(),
+                     device_type=torch.device(device).type)
 
 
 def is_writer() -> bool:
@@ -89,8 +90,10 @@ def is_writer() -> bool:
 
 def local_batch_rows(mesh, batch_size: int) -> frozenset:
     """The rows of a global batch of ``batch_size`` that this rank holds:
-    its block over data x fsdp."""
-    return frozenset(row_block(batch_index(mesh), mesh.size(), batch_size))
+    its block over data x fsdp x ep (the ranks of one ``sp`` group hold the
+    same rows, each its band of their frames' rows)."""
+    return frozenset(row_block(batch_index(mesh), batch_group_size(mesh),
+                               batch_size))
 
 
 def local_rows_of(rows, n: int) -> list:

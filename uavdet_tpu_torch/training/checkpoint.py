@@ -31,6 +31,8 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
+from ..parallel.experts import (cut_expert_tensor, expert_params,
+                                full_expert_tensor)
 from ..parallel.mesh import is_ddp, is_fsdp, unwrap
 from ..utils.datatypes import TrainState
 
@@ -150,11 +152,21 @@ def _gathered_blob(state: TrainState) -> dict:
     osd = get_optimizer_state_dict(model, state.optimizer,
                                    options=_opts(cpu_offload=True))
     params = list(unwrap(model).parameters())
+    slices = _slices(model)
+    for name, p in slices.items():   # the whole stacks; every rank gathers
+        msd[name] = full_expert_tensor(p).cpu()
+        live = state.optimizer.state.get(p, {})
+        for k in sorted(live):
+            v = live[k]
+            if torch.is_tensor(v) and v.shape == p.shape:
+                full = full_expert_tensor(v, p.ep_slice).cpu()
+                if name in osd.get("state", {}):
+                    osd["state"][name][k] = full
     mini_step, grads = state.mini_step, [None] * len(params)
-    if mini_step and is_fsdp(model):
+    if mini_step and (is_fsdp(model) or slices):
         print("WARNING: checkpoint between the microbatches of an update "
-              f"under fsdp: the {mini_step} accumulated microbatches are not "
-              "kept; a restore starts the accumulation anew")
+              f"under fsdp or ep: the {mini_step} accumulated microbatches "
+              "are not kept; a restore starts the accumulation anew")
         mini_step = 0
     elif mini_step:
         for i, p in enumerate(params):
@@ -173,6 +185,13 @@ def _gathered_blob(state: TrainState) -> dict:
             "mini_step": mini_step, "grads": grads}
 
 
+def _slices(model) -> dict:
+    """The ``ep`` expert slices of a placed model, by name."""
+    mine = {id(p) for p in expert_params(unwrap(model))}
+    return {n: p for n, p in unwrap(model).named_parameters()
+            if id(p) in mine}
+
+
 def _restore_broadcast(state: TrainState, path: str) -> TrainState:
     from torch.distributed.checkpoint.state_dict import (
         set_model_state_dict, set_optimizer_state_dict)
@@ -181,6 +200,8 @@ def _restore_broadcast(state: TrainState, path: str) -> TrainState:
     blob = (torch.load(path, map_location="cpu", weights_only=True)
             if dist.get_rank() == 0 else None)
     osd = {}
+    slices = _slices(model)
+    whole = [None]   # the stacks of the slices and their optimizer state
     if blob is not None:
         names = _names(model)
         osd = {"state": {names[k]: v
@@ -188,9 +209,21 @@ def _restore_broadcast(state: TrainState, path: str) -> TrainState:
                "param_groups": [
                    dict(g, params=[names[k] for k in g["params"]])
                    for g in blob["optimizer"]["param_groups"]]}
-    opts = _opts(broadcast_from_rank0=True)
+        whole = [{n: (blob["model"].pop(n), osd["state"].pop(n, {}))
+                  for n in slices}]
+    opts = _opts(broadcast_from_rank0=True, strict=not slices)
     set_model_state_dict(model, blob["model"] if blob else {}, options=opts)
     set_optimizer_state_dict(model, state.optimizer, osd, options=opts)
+    if slices:
+        dist.broadcast_object_list(whole, src=0)
+        with torch.no_grad():
+            for name, p in slices.items():
+                full, st = whole[0][name]
+                p.copy_(cut_expert_tensor(full, p.ep_slice))
+                mine = state.optimizer.state[p]
+                for k, v in st.items():
+                    mine[k] = (cut_expert_tensor(v, p.ep_slice).to(p.device)
+                               if torch.is_tensor(v) and v.dim() else v)
     rest = [None if blob is None else
             (blob["scheduler"], blob["step"], blob["mini_step"],
              blob["grads"])]

@@ -15,7 +15,8 @@ pieces are an optimizer, a scheduler and ``update``:
   gradients, which sums to the mean gradient that ``MultiSteps`` takes, and
   ``update`` steps the optimizer once every k microbatches.
 * Clipping by the global norm of that mean gradient, right before the
-  update, as optax's ``clip_by_global_norm`` inside the chain.
+  update, as optax's ``clip_by_global_norm`` inside the chain (over
+  FSDP2's shards and ``ep``'s expert slices, the whole model's norm).
 """
 
 import math
@@ -69,29 +70,41 @@ def build_optimizer(params, hparams, steps_per_epoch: int | None = None):
     return opt, torch.optim.lr_scheduler.LambdaLR(opt, sched)
 
 
-def clip_by_global_norm_(grads: Sequence[torch.Tensor],
-                         max_norm: float) -> None:
+def clip_by_global_norm_(grads: Sequence[torch.Tensor], max_norm: float,
+                         ep_groups: Sequence | None = None) -> None:
     """optax's ``clip_by_global_norm`` in place: where the global norm is
     at least ``max_norm``, every gradient becomes g / norm * max_norm. On
-    the device, without a host sync. Under FSDP2 (gradients that are
-    sharded DTensors) the norm is the whole model's: the squared norms of
-    the local shards summed over the ranks that shard them."""
+    the device, without a host sync. The norm is the whole model's: under
+    FSDP2 (gradients that are sharded DTensors) the squared norms of the
+    local shards summed over the ranks that shard them; under ``ep`` (a
+    gradient whose entry of ``ep_groups`` is a process group: an expert
+    slice's) the squared norms of the slices summed over that ``ep``
+    group."""
     from torch.distributed.tensor import DTensor
     local = [g.to_local() if isinstance(g, DTensor) else g for g in grads]
     norms = torch.stack([torch.linalg.vector_norm(g) for g in local])
     sharded = [isinstance(g, DTensor) for g in grads]
+    sliced = [g is not None for g in (ep_groups or ())]
+    # (which gradients, the groups their squared norms are summed over)
+    parts = []
     if any(sharded):
         g0 = grads[sharded.index(True)]
-        mask = torch.tensor(sharded, device=norms.device)
-        sq = norms.square()
-        part = torch.where(mask, sq, 0.0).sum()
-        for dim, placement in enumerate(g0.placements):
-            if placement.is_shard():
-                torch.distributed.all_reduce(
-                    part, group=g0.device_mesh.get_group(dim))
-        norm = (torch.where(mask, 0.0, sq).sum() + part).sqrt()
-    else:
+        parts.append((sharded, [g0.device_mesh.get_group(d) for d, pl in
+                                enumerate(g0.placements) if pl.is_shard()]))
+    if any(sliced):
+        parts.append((sliced, [ep_groups[sliced.index(True)]]))
+    if not parts:
         norm = torch.linalg.vector_norm(norms)
+    else:
+        sq = norms.square()
+        whole, total = torch.ones_like(sq, dtype=torch.bool), sq.new_zeros(())
+        for which, groups in parts:
+            mask = torch.tensor(which, device=norms.device)
+            part = torch.where(mask, sq, 0.0).sum()
+            for group in groups:
+                torch.distributed.all_reduce(part, group=group)
+            total, whole = total + part, whole & ~mask
+        norm = (torch.where(whole, sq, 0.0).sum() + total).sqrt()
     scale = torch.where(norm < max_norm, 1.0, max_norm / norm)
     torch._foreach_mul_(local, scale)
 
@@ -106,9 +119,12 @@ def update(state: TrainState, grad_batches: int = 1,
     if state.mini_step < grad_batches:
         return False
     if grad_clip_val:
-        grads = [p.grad for group in state.optimizer.param_groups
-                 for p in group["params"] if p.grad is not None]
-        clip_by_global_norm_(grads, float(grad_clip_val))
+        params = [p for group in state.optimizer.param_groups
+                  for p in group["params"] if p.grad is not None]
+        clip_by_global_norm_(
+            [p.grad for p in params], float(grad_clip_val),
+            [getattr(getattr(p, "ep_slice", None), "group", None)
+             for p in params])
     state.optimizer.step()
     state.optimizer.zero_grad(set_to_none=True)
     state.scheduler.step()

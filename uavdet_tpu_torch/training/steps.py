@@ -12,8 +12,8 @@ modules with ``dtype=bf16`` over float32 parameters. The models cast their
 input to the parameters' dtype, so without autocast a float32 model computes
 in float32 whatever the frames' dtype.
 
-The head strides come from the feature shapes (``input_size // S``), not
-from ``head_scales``.
+The head strides come from the feature maps' widths (``input_size // W``),
+not from ``head_scales`` (nor from their rows, a band's under ``sp``).
 
 On a mesh (``mesh``, with ``model`` placed by ``parallel.shard_model``)
 each rank's batch is its own rows. The loss is a per-sample mean, then a
@@ -25,6 +25,17 @@ gives the global mean. One all-reduce per microbatch carries the rows and
 the row-weighted losses, so the metrics are the global batch's on every
 rank. With ``grad_batches`` above 1 the gradients stay on the rank for all
 but the last microbatch of an update (``parallel.gradient_sync``).
+
+Under ``sp`` a rank's batch is its rows' whole frames; the step keeps its
+band of their rows (``parallel.row_band``), encodes the targets on the
+whole grid and keeps the band's rows of them, and the loss sums its masked
+means over the ``sp`` group. Every rank of an sp group then holds the
+same loss, the rows count once per rank in ``_global_metrics``, and the
+same scale ``rows * world / global rows`` (global rows counted over every
+rank, so ``n_sp`` times the batch) makes the world's average gradient the
+one-process gradient. Under ``ep`` the expert slices' gradients are
+summed over the ranks that hold the same slice after an update's last
+backward (``parallel.reduce_expert_grads``).
 """
 
 import contextlib
@@ -38,7 +49,10 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ..ops.losses import LossBreakdown, yolo_loss
 from ..ops.targets import encode_yolo_targets
-from ..parallel import batch_group, gradient_sync
+from ..parallel import (batch_group, coordinate, gradient_sync,
+                        reduce_expert_grads, row_band, sp_group, sp_rows,
+                        unwrap)
+from ..parallel.spatial import model_stride
 from ..utils.datatypes import BatchData, TrainState
 from .optim import update
 
@@ -81,11 +95,36 @@ def _anchors(hparams, device) -> torch.Tensor:
                         device=device)
 
 
-def _loss(outs, batch: BatchData, anchors, input_size: int, weights: dict):
-    scales = tuple(input_size // o.obj.shape[2] for o in outs)
+class _Band:
+    """A rank's band of rows under ``sp`` (None where sp has one rank)."""
+
+    def __init__(self, model, mesh, input_size: int):
+        self.group = sp_group(mesh)
+        if self.group is None:
+            return
+        self.index = coordinate(mesh)[2]
+        self.n = mesh["sp"].size()
+        self.rows = row_band(self.index, self.n, input_size,
+                             model_stride(unwrap(model)))
+
+    def image(self, x):
+        if self.group is None:
+            return x
+        return x[:, self.rows.start:self.rows.stop]
+
+
+def _loss(outs, batch: BatchData, anchors, input_size: int, weights: dict,
+          band=None):
+    scales = tuple(input_size // o.obj.shape[3] for o in outs)
     grids = encode_yolo_targets(batch.boxes, batch.box_mask, anchors, scales,
                                 input_size)
-    return yolo_loss(outs, grids, anchors, scales, **weights)
+    if band is None or band.group is None:
+        return yolo_loss(outs, grids, anchors, scales, **weights)
+    offsets = [band.index * o.obj.shape[2] for o in outs]
+    grids = [g[:, :, r:r + o.obj.shape[2]]
+             for g, r, o in zip(grids, offsets, outs)]
+    return yolo_loss(outs, grids, anchors, scales, **weights,
+                     sp_group=band.group, row_offsets=offsets)
 
 
 def _global_metrics(lb, rows: int, group) -> tuple:
@@ -165,13 +204,16 @@ def make_train_step(model: nn.Module, hparams, input_size: int,
 
     buffers = _bn_buffers(model)
     group = batch_group(mesh)
+    band = _Band(model, mesh, input_size)
+    ep = mesh is not None and mesh["ep"].size() > 1
 
     def train_step(state: TrainState, batch: BatchData) -> dict:
         model.train()
         before = ([b.clone() for b in buffers] if nan_guard else None)
-        with gradient_sync(model, state.mini_step + 1 >= grad_batches):
-            outs = forward(batch.image)
-            lb = _loss(outs, batch, anchors, input_size, weights)
+        sync = state.mini_step + 1 >= grad_batches
+        with gradient_sync(model, sync):
+            outs = forward(band.image(batch.image))
+            lb = _loss(outs, batch, anchors, input_size, weights, band)
             loss = lb.total
             if group is None:
                 metrics = {"loss": lb.total.detach(),
@@ -185,6 +227,8 @@ def make_train_step(model: nn.Module, hparams, input_size: int,
                 return metrics
             after = [b.clone() for b in buffers] if remat else None
             (loss / grad_batches).backward()
+        if ep and sync:
+            reduce_expert_grads(unwrap(model), mesh)
         if remat:
             torch._foreach_copy_(buffers, after)
         update(state, grad_batches, grad_clip_val)
@@ -197,12 +241,14 @@ def make_eval_step(model: nn.Module, hparams, input_size: int,
                    compute_dtype: torch.dtype = torch.float32, mesh=None):
     """-> ``eval_step(batch) -> metrics`` (the validation loss), the
     forward in eval mode; metrics as device tensors. On a ``mesh`` the
-    batch is the rank's rows of the model (a plain module with the full
-    weights) and the metrics those of the global batch, weighted by rows."""
+    batch is the rank's rows and the metrics those of the global batch,
+    weighted by rows; under ``sp`` the model runs on the rank's band of
+    their rows, as the train step."""
     device = next(model.parameters()).device
     anchors = _anchors(hparams, device)
     weights = _loss_weights(hparams)
     group = batch_group(mesh)
+    band = _Band(model, mesh, input_size)
 
     @torch.no_grad()
     def eval_step(batch: BatchData) -> dict:
@@ -211,9 +257,9 @@ def make_eval_step(model: nn.Module, hparams, input_size: int,
         if group is not None and rows == 0:   # nothing to run, one to sum
             lb = LossBreakdown(*torch.zeros(3, device=device))
         else:
-            with autocast(device, compute_dtype):
-                outs = model(batch.image)
-            lb = _loss(outs, batch, anchors, input_size, weights)
+            with autocast(device, compute_dtype), sp_rows(model, band.group):
+                outs = model(band.image(batch.image))
+            lb = _loss(outs, batch, anchors, input_size, weights, band)
         if group is not None:
             return _global_metrics(lb, rows, group)[0]
         return {"loss": lb.total, "bbox_loss": lb.bbox, "obj_loss": lb.obj}

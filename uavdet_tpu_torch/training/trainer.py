@@ -13,23 +13,30 @@ a TPU layout rewrite that equals the unfolded step up to reassociation: it
 is accepted and changes nothing.
 
 Multi-device keys, with the JAX meaning: ``devices`` is the total, data x
-fsdp, ``fsdp_devices`` its fsdp factor; ``multihost`` (with
+fsdp x sp x ep, ``fsdp_devices``, ``sp_devices`` and ``ep_devices`` its
+factors (``devices`` must be divisible by their product, the batch size by
+data x fsdp x ep, and under ``sp`` the image size by sp x the model's
+largest stride); ``multihost`` (with
 ``coordinator``, ``num_processes``, ``process_id`` where
 ``torch.distributed.run``'s environment does not give them) starts the
 process group. One process drives one device: with ``devices`` above 1 the
 trainer joins the running process group, or starts it from the
 environment or from those keys, and trains on a ``parallel.make_mesh``
-mesh (DDP, FSDP2 or HSDP, ``parallel.shard_model``) where the world has
+mesh (DDP, FSDP2 or HSDP, ``parallel.shard_model``; every conv on the
+rank's band of rows under ``sp``, the expert stacks sliced under ``ep``)
+where the world has
 ``devices`` ranks; with fewer it warns and trains on one device, as the JAX
 trainer does. With ``multihost`` the train pipeline decodes only this
 rank's rows (``set_local_rows``); otherwise every rank takes the global
 batch and keeps its rows. Validation gives every rank the full batch: the
 loss is over each rank's rows, reduced by rows, and the AP gathers every
 rank's detections (the sharded detect) so that every rank holds the same
-metric. Under FSDP2 validation runs on a plain copy of the model whose
-weights are gathered once per validation pass. Rank 0 writes the
-checkpoints and the metrics. ``sp_devices``, ``ep_devices`` and
-``pp_devices`` above 1 raise, naming their ROADMAP items.
+metric. Under FSDP2 or ``ep`` validation runs on a plain copy of the model
+whose weights (FSDP2's shards, ``ep``'s slices) are gathered once per
+validation pass; under ``sp`` the validation loss runs on each rank's band
+of rows and the detector is the spatial one (``make_detector(mesh=,
+spatial=True)``). Rank 0 writes the checkpoints and the metrics.
+``pp_devices`` above 1 raises, naming its ROADMAP item.
 
 The model is built at construction with float32 parameters and seeded
 weights (``train.seed``, ``utils.seeding.init_weights``); ``fit`` trains it
@@ -54,8 +61,8 @@ import torch.distributed as dist
 from ..ops.map import MeanAveragePrecision, add_detections
 from ..parallel import (check_batch_divisible, check_layout_supported,
                         copy_full_weights, init_multihost, local_batch_rows,
-                        local_device, make_mesh, shard_host_batch,
-                        shard_model)
+                        local_device, make_mesh, model_stride, row_band,
+                        shard_host_batch, shard_model)
 from ..utils.datatypes import BatchData
 from ..utils.seeding import seeded_model
 from .checkpoint import CheckpointManager
@@ -136,9 +143,11 @@ class Trainer:
         if self.mesh is not None:
             bs = int(config.dataset.batch_size)
             check_batch_divisible(bs, self.mesh)
+            if self.mesh["sp"].size() > 1:
+                row_band(0, self.mesh["sp"].size(), self.input_size,
+                         model_stride(self.model))
             self.train_rows = self.val_rows = local_batch_rows(self.mesh, bs)
-            fsdp = self.mesh["fsdp"].size() > 1
-            if fsdp:
+            if self.mesh["fsdp"].size() > 1 or self.mesh["ep"].size() > 1:
                 self.eval_model = copy.deepcopy(self.model)
             self.train_model = shard_model(self.model, self.mesh)
             if self.multihost and hasattr(train_pipe, "set_local_rows"):
@@ -163,9 +172,12 @@ class Trainer:
         self.epoch_seconds: list = []   # wall-clock per epoch
 
     def _make_mesh(self, tcfg, device):
-        """The data x fsdp mesh of ``devices``, or None (one device)."""
+        """The data x fsdp x sp x ep mesh of ``devices``, or None (one
+        device)."""
         n_devices = int(tcfg.get("devices", 1) or 1)
         n_fsdp = int(tcfg.get("fsdp_devices", 1) or 1)
+        n_sp = int(tcfg.get("sp_devices", 1) or 1)
+        n_ep = int(tcfg.get("ep_devices", 1) or 1)
         if not (self.multihost or n_devices > 1):
             return None
         running = init_multihost(
@@ -173,10 +185,11 @@ class Trainer:
             num_processes=tcfg.get("num_processes"),
             process_id=tcfg.get("process_id"), device=device)
         world = dist.get_world_size() if running else 1
-        if n_devices % n_fsdp:
+        inner = n_fsdp * n_sp * n_ep
+        if n_devices % inner:
             raise ValueError(
                 f"train.trainer.devices={n_devices} is not divisible by "
-                f"fsdp_devices={n_fsdp}")
+                f"fsdp_devices*sp_devices*ep_devices={inner}")
         if not running or world < n_devices:
             if n_devices > 1:
                 print(f"WARNING: train.trainer.devices={n_devices} but only "
@@ -186,7 +199,7 @@ class Trainer:
             raise ValueError(
                 f"train.trainer.devices={n_devices} but {world} processes "
                 "run: one process drives one device")
-        return make_mesh(n_devices // n_fsdp, n_fsdp,
+        return make_mesh(n_devices // inner, n_fsdp, n_sp, n_ep,
                          "cuda" if torch.device(device).type == "cuda"
                          else "cpu")
 
@@ -329,7 +342,7 @@ class Trainer:
         n_val = _limit(len(self.val_pipe), self.val_limit)
         ms = []
         ap_metric = None
-        if self.eval_model is not self.model:   # FSDP2: gathered once here
+        if self.eval_model is not self.model:   # FSDP2, ep: gathered here
             copy_full_weights(self.train_model, self.eval_model)
         if self.eval_ap:
             from ..inference import make_detector
@@ -338,7 +351,8 @@ class Trainer:
                 self._detector = make_detector(
                     self.eval_model, self.config.model.hparams,
                     self.input_size, compute_dtype=self.compute_dtype,
-                    mesh=self.mesh)
+                    mesh=self.mesh, spatial=self.mesh is not None
+                    and self.mesh["sp"].size() > 1)
         for i, batch in enumerate(iter(self.val_pipe)):
             if i >= n_val:
                 break
