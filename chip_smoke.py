@@ -190,6 +190,21 @@ nor PyYAML. The phases, in order:
      expert bytes per rank and the bytes each DyConv's collectives move
      beside an all-gather of its slices; then 7o's and 7p's readings as one
      ``{"multi_device": ...}`` line;
+  7q. pipeline parallelism (``parallel.pipeline``; one card, so every
+     stage shares it and no speed-up can show): (a) the float32 tiny DyYOLO
+     of 7i at 64 px in 2 and 4 stages, 3 microbatches of 2 rows, 2 updates
+     on the card against the same steps on the CPU (7i's rtol; no kernel
+     launched); (b) full-width DyYOLO at cfg6's shape (640 px, batch 8 in 2
+     microbatches of 4, bf16 autocast) in 2 stages: one update against the
+     plain step with grad_batches 2 on the same microbatches from the same
+     weights (microbatch losses rtol 1e-3, every updated parameter and
+     BatchNorm buffer within 1e-3 of its tensor's largest |value|, the
+     largest differences printed); (c) ``Trainer.fit`` with ``pp_devices:
+     2`` on ``[cuda:0, cuda:0]`` (2 epochs of 2 train and 1 validation
+     batch, ``eval_ap``): A, B and C once per validation batch, and its
+     ``last`` restored into a single-device Trainer bitwise; (d)
+     ``pp_devices`` above ``torch.cuda.device_count()`` with
+     ``device="cuda"`` raises;
   8. times, with CUDA events, medians after warm-up: the four detectors per
      batch, and each kernel at its main-path shapes beside its plain
      version and beside one bf16 ``F.conv2d(groups=B)`` call that computes
@@ -208,6 +223,8 @@ nor PyYAML. The phases, in order:
      tail's two layers it replaces; a cfg6 train microbatch (and with
      PyTorch's own BatchNorm update beside the port's), images per second,
      ``Trainer.validate`` per batch and the peak device memory of training;
+     7q (b)'s pp update and the plain step's on the same microbatches (ms
+     per update and peak memory, in turns; a ``{"pp": ...}`` JSON line);
      7k's DyYOLO artifact against the live detector, in turns; the host's
      time to issue one call of kernels A, B and C through their registered
      operators and through the CUDA wrappers called directly; RTMUAVDet's
@@ -215,8 +232,8 @@ nor PyYAML. The phases, in order:
      beside its plain version and bound, and a cfg5 step (an ``{"rtm":
      ...}`` JSON line, with 7n's readings);
   9. a ``torch.profiler`` window of each detector, of 7k's DyYOLO artifact,
-     of two cfg6 train microbatches, of the RTMUAVDet detector and of two
-     cfg5 steps: device time by kernel.
+     of two cfg6 train microbatches, of two 7q pp updates, of the RTMUAVDet
+     detector and of two cfg5 steps: device time by kernel.
 
 No detector path may launch kernel E, F or G: their paths are the op and
 the two command-line entries, as in the JAX package.
@@ -351,6 +368,20 @@ SP_CHECK_FRAMES = 4                  # images of a halo'd band held against
                                      # the plain versions of A, B and D
 SP_ITERS, SP_WARMUP = 5, 1           # timed requests of a spatial detect
 
+# pipeline parallelism (7q): one process drives the S stages; on the one
+# card the stages share it, so what is measured is the schedule's cost over
+# the plain step on the same card, not a speed-up
+PP_PARITY_STAGES = (2, 4)            # (a) the float32 tiny DyYOLO, card vs CPU
+PP_PARITY_MICRO, PP_PARITY_STEPS = 3, 2
+PP_STAGES, PP_MICRO = 2, 2           # (b), (c): cfg6's shape in 2 stages
+# (b): bf16 losses and updated tensors of the pp step against the plain
+# step on the same microbatches: the same operations, the gradient of the
+# two microbatches summed in one backward instead of two
+PP_LOSS_RTOL = 1e-3
+PP_PARAM_TOL = 1e-3                  # of each tensor's largest |value|
+PP_EPOCHS, PP_TRAIN_BATCHES, PP_VAL_BATCHES = 2, 2, 1   # (c)
+PP_ITERS, PP_WARMUP = 5, 2           # (e): timed updates
+
 KERNELS = {
     "stem_l1": ("uavdet_tpu_torch/csrc/stem_l1.cu",
                 "uavdet_tpu/ops/pallas_stem_split.py:62"),
@@ -425,6 +456,9 @@ EXPECTED_LAUNCHES = {
     # per microbatch of the sp 2 and ep 2 train steps (7p)
     "DyYOLO train step, sp 2": {},
     "DyYOLO train step, ep 2": {},
+    # per pp step (7q), per validation batch of Trainer.fit with pp_devices
+    "DyYOLO pp train step": {},
+    "Trainer.fit DyYOLO pp": {"stem_l1": 1, "stem_l2": 1, "nms": 1},
     # one run of a ladder's entry point: every stage, warm-up included
     "l2_ablate": {"stem_l2_stage": 5 * (LADDER_ITERS + 3)},
     "block_ablate": {"post_stem_block": 4 * (LADDER_ITERS + 3)},
@@ -1951,6 +1985,257 @@ class SpatialExperts:
             print(f"cfg6 under {axis} 2 sharing the card: "
                   f"{json.dumps(report[f'{axis}_cfg6'])} {self.tag}")
         self.md.report["sp_ep"] = report
+class PipelineStages:
+    """Phase 7q: pipeline parallelism (``parallel.pipeline``), one process
+    driving the stages, every stage on the one card: (a) the float32 tiny
+    DyYOLO's pp steps against the same steps on the CPU; (b) one pp update
+    at cfg6's shape against the plain step with ``grad_batches`` 2 on the
+    same microbatches; (c) ``Trainer.fit`` with ``pp_devices: 2`` (kernels
+    A, B and C in its validation; its ``last`` restored into a
+    single-device Trainer); (d) the refusal of more stages than cards; (e)
+    in phase 8, (b)'s ms per update and peak memory beside the plain
+    step's."""
+
+    def __init__(self, smoke, dev, tag, tiny_hp, hp, size=SIZE,
+                 train_batch=TRAIN_BATCH, parity_size=PARITY_SIZE):
+        self.smoke, self.dev, self.tag = smoke, dev, tag
+        self.tiny_hp, self.hp, self.size = tiny_hp, hp, size
+        self.train_batch, self.parity_size = train_batch, parity_size
+        self.full = None   # (b)'s two steps, timed in (e)
+
+    def parity(self):
+        """(a) S = 2 and 4, M = 3 microbatches of 2 rows, 2 updates, on
+        [card] * S against the CPU: the microbatches' losses within
+        ``PARITY_RTOL``; a pp train step launches no kernel."""
+        import torch
+        from uavdet_tpu_torch import kernels
+        from uavdet_tpu_torch.parallel import (PipelinedModel,
+                                               make_pp_trainer_step)
+        from uavdet_tpu_torch.training import build_optimizer, init_state
+        from uavdet_tpu_torch.utils.seeding import seeded_model
+        smoke, hp = self.smoke, self.tiny_hp
+        gen = torch.Generator().manual_seed(SEED + 3)
+        batches = []
+        for _ in range(PP_PARITY_STEPS):
+            b = painted_batch(gen, "cpu", PP_PARITY_MICRO * PARITY_BATCH,
+                              self.parity_size, 2)
+            batches.append(b._replace(image=torch.rand(b.image.shape,
+                                                       generator=gen)))
+        for n_stages in PP_PARITY_STAGES:
+            losses = {}
+            for side, where in (("card", self.dev),
+                                ("cpu", torch.device("cpu"))):
+                m = seeded_model("DyYOLO", hp, SEED, where,
+                                 dtype=torch.float32)
+                pm = PipelinedModel(m, n_stages, [where] * n_stages)
+                state = init_state(m, *build_optimizer(m.parameters(), hp))
+                step = make_pp_trainer_step(pm, hp, self.parity_size,
+                                            PP_PARITY_MICRO)
+                md_sync(self.dev)
+                kernels.reset_launch_counts()
+                losses[side] = np.concatenate([
+                    step(state, type(b)(*(t.to(where) for t in b)))
+                    ["microbatch_loss"].cpu().numpy() for b in batches])
+                md_sync(self.dev)
+                if side == "card":
+                    count_launches(smoke, kernels, "DyYOLO pp train step",
+                                   PP_PARITY_STEPS)
+            rel = np.abs(losses["card"] - losses["cpu"]) / losses["cpu"]
+            smoke.check(f"float32 pp train steps, {n_stages} stages, card "
+                        "vs CPU", bool((rel < PARITY_RTOL).all()),
+                        f"card {losses['card'].tolist()} cpu "
+                        f"{losses['cpu'].tolist()} relative {rel.tolist()} "
+                        f"(rtol {PARITY_RTOL})")
+
+    def full_width(self):
+        """(b) full-width DyYOLO at cfg6's shape (640 px, batch 8 cut into 2
+        microbatches of 4, bf16 autocast over float32 parameters) in 2
+        stages on the card: one update against the plain step with
+        ``grad_batches`` 2 on the same two microbatches, from the same
+        seeded weights."""
+        import torch
+        from uavdet_tpu_torch import kernels
+        from uavdet_tpu_torch.parallel import (PipelinedModel,
+                                               make_pp_trainer_step)
+        from uavdet_tpu_torch.training import (build_optimizer, init_state,
+                                               make_train_step)
+        from uavdet_tpu_torch.utils.datatypes import BatchData
+        from uavdet_tpu_torch.utils.seeding import seeded_model
+        smoke, dev, hp = self.smoke, self.dev, self.hp
+        bf16 = torch.bfloat16
+        gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+        batch = painted_batch(gen, dev, self.train_batch, self.size)
+        mb = self.train_batch // PP_MICRO
+        micro = [BatchData(*(t[i * mb:(i + 1) * mb] for t in batch))
+                 for i in range(PP_MICRO)]
+        models = [seeded_model("DyYOLO", hp, SEED, dev, dtype=torch.float32)
+                  for _ in range(2)]
+        pm = PipelinedModel(models[0], PP_STAGES, [dev] * PP_STAGES)
+        states = [init_state(m, *build_optimizer(m.parameters(), hp))
+                  for m in models]
+        pp_step = make_pp_trainer_step(pm, hp, self.size, PP_MICRO,
+                                       compute_dtype=bf16)
+        plain = make_train_step(models[1], hp, self.size, compute_dtype=bf16,
+                                grad_batches=PP_MICRO)
+        before = {k: v.float().clone()
+                  for k, v in models[1].state_dict().items()}
+        md_sync(dev)
+        kernels.reset_launch_counts()
+        got = pp_step(states[0], batch)
+        md_sync(dev)
+        count_launches(smoke, kernels, "DyYOLO pp train step", 1)
+        want = [plain(states[1], b) for b in micro]
+        g = got["microbatch_loss"].float().cpu().numpy()
+        w = np.array([float(m["loss"]) for m in want])
+        rel = np.abs(g - w) / np.abs(w)
+        smoke.check("pp step at cfg6's shape: microbatch losses vs the "
+                    "plain step", bool(np.isfinite(g).all()
+                                       and (rel < PP_LOSS_RTOL).all()),
+                    f"pp {g.tolist()} plain {w.tolist()} relative "
+                    f"{rel.tolist()} (rtol {PP_LOSS_RTOL}) {self.tag}")
+        worst, where_, moved = 0.0, None, 0.0
+        want_sd = models[1].state_dict()
+        for k, v in models[0].state_dict().items():
+            if not v.is_floating_point():
+                continue
+            ref = want_sd[k].float()
+            err = float((v.float() - ref).abs().max()
+                        / ref.abs().max().clamp_min(1e-30))
+            moved = max(moved, float((ref - before[k]).abs().max()))
+            if err > worst:
+                worst, where_ = err, k
+        smoke.check("pp step at cfg6's shape: updated parameters and "
+                    "BatchNorm buffers vs the plain step",
+                    worst < PP_PARAM_TOL and moved > 0
+                    and states[0].step == states[1].step == 1,
+                    f"largest difference {worst:.3g} of the tensor's largest "
+                    f"|value| at {where_} (limit {PP_PARAM_TOL}); the plain "
+                    f"step moved a value by {moved:.3g}; updates "
+                    f"{states[0].step} / {states[1].step}")
+        self.full = (states, pp_step, plain, batch, micro)
+
+    def config(self, workdir, **trainer):
+        from uavdet_tpu_torch.utils.config import Config
+        return Config({
+            "dataset": {"batch_size": self.train_batch,
+                        "image_size": [self.size, self.size]},
+            "train": {"seed": SEED, "trainer": {
+                "epochs": PP_EPOCHS, "grad_batches": TRAIN_GRAD_BATCHES,
+                "train_batches": PP_TRAIN_BATCHES,
+                "val_batches": PP_VAL_BATCHES, "val_check_interval": 1.0,
+                "precision": "bf16", "grad_clip_val": None, "eval_ap": True,
+                "profiler": None, **trainer},
+                "checkpoint": {"dir": f"{workdir}/ck", "monitor": "val_loss",
+                               "mode": "min"}},
+            "model": {"name": "DyYOLO", "hparams": as_dict(self.hp)}})
+
+    def trainer(self, workdir):
+        """(c) ``Trainer.fit`` with ``pp_devices: 2`` on ``[card, card]``
+        (2 epochs of 2 train and 1 validation batch, ``eval_ap``): A, B and C
+        once per validation batch; its ``last`` restores into a
+        single-device Trainer bitwise; (d) ``pp_devices`` above the visible
+        cards raises with ``device="cuda"``."""
+        import torch
+        from uavdet_tpu_torch import kernels
+        from uavdet_tpu_torch.training import (CheckpointManager,
+                                               MetricsWriter, Trainer)
+        smoke, dev = self.smoke, self.dev
+        gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+        train_b = BatchList([painted_batch(gen, dev, self.train_batch,
+                                           self.size)
+                             for _ in range(PP_TRAIN_BATCHES)])
+        val_b = BatchList([painted_batch(gen, dev, self.train_batch,
+                                         self.size)
+                           for _ in range(PP_VAL_BATCHES)])
+        pp_kw = dict(pp_devices=PP_STAGES, pp_microbatches=PP_MICRO)
+        t = Trainer(self.config(f"{workdir}/pp", **pp_kw), train_b, val_b,
+                    metrics=MetricsWriter(f"{workdir}/pp/dv"),
+                    device=[dev] * PP_STAGES)
+        md_sync(dev)
+        kernels.reset_launch_counts()
+        final = t.fit()
+        md_sync(dev)
+        count_launches(smoke, kernels, "Trainer.fit DyYOLO pp",
+                       PP_EPOCHS * PP_VAL_BATCHES)
+        updates = PP_EPOCHS * PP_TRAIN_BATCHES // TRAIN_GRAD_BATCHES
+        smoke.check("pp Trainer.fit: val_loss, val_AP, updates",
+                    np.isfinite(final["val_loss"]) and final["val_AP"] >= 0
+                    and t.state.step == updates and len(t.pm.stages) == 2,
+                    f"{final}, {t.state.step} updates (expected {updates}), "
+                    f"stages {t.pm.ranges} on {t.pm.devices}")
+        single = Trainer(self.config(f"{workdir}/single"), train_b, val_b,
+                         metrics=MetricsWriter(f"{workdir}/single/dv"),
+                         device=dev)
+        CheckpointManager(f"{workdir}/pp/ck").restore(single.state, "last")
+        sd = single.model.state_dict()
+        same = [torch.equal(v, sd[k]) for k, v in t.model.state_dict().items()]
+        same += [torch.equal(t.state.optimizer.state[p]["momentum_buffer"],
+                             single.state.optimizer.state[q]
+                             ["momentum_buffer"])
+                 for p, q in zip(t.model.parameters(),
+                                 single.model.parameters())]
+        smoke.check("pp checkpoint restores into a single-device Trainer "
+                    "bitwise", all(same) and single.state.step == updates,
+                    f"{sum(same)} of {len(same)} tensors equal (weights, "
+                    f"buffers, momentum); step {single.state.step}")
+        n = max(2, torch.cuda.device_count() + 1)
+        try:
+            Trainer(self.config(f"{workdir}/refused", pp_devices=n,
+                                pp_microbatches=1), train_b, val_b,
+                    metrics=MetricsWriter(f"{workdir}/refused/dv"),
+                    device="cuda")
+            refused = "no error"
+        except ValueError as e:
+            refused = str(e)
+        smoke.check("pp_devices above the visible cards raises",
+                    "CUDA device(s) visible" in refused,
+                    f"pp_devices={n}: {refused}")
+
+    def timing(self):
+        """(e) (b)'s update: ms (CUDA-event median) and the peak device
+        memory above what was resident, pp and plain in turns (plain, pp,
+        pp, plain). One card holds both stages: the schedule's cost, not a
+        speed-up."""
+        import torch
+        states, pp_step, plain, batch, micro = self.full
+        dev = self.dev
+
+        def pp_update():
+            pp_step(states[0], batch)
+
+        def plain_update():
+            for b in micro:
+                plain(states[1], b)
+
+        ms, peak = {"pp": [], "plain": []}, {}
+        for which in ("plain", "pp", "pp", "plain"):
+            fn = pp_update if which == "pp" else plain_update
+            md_sync(dev, peak_reset=True)
+            base = (torch.cuda.memory_allocated(dev) / 2**30
+                    if dev.type == "cuda" else 0.0)
+            ms[which].append(md_ms(fn, dev, PP_ITERS, PP_WARMUP))
+            peak[which] = md_sync(dev) - base
+        row = {"ms_per_update": {k: min(v) for k, v in ms.items()},
+               "runs_ms": ms, "peak_gib_above_resident": peak,
+               "stages": PP_STAGES, "microbatches": PP_MICRO,
+               "rows_per_microbatch": self.train_batch // PP_MICRO,
+               "size": self.size, "card_sharing": "every stage on one card: "
+               "the schedule's cost over the plain step, not a scaling "
+               "number"}
+        print(f"pp step DyYOLO @{self.size} bs={self.train_batch} in "
+              f"{PP_STAGES} stages on one card, {PP_MICRO} microbatches, "
+              f"bf16: {row['ms_per_update']['pp']:.3f} ms/update "
+              f"({ms['pp']}), "
+              f"peak {peak['pp']:.2f} GiB above resident; plain step "
+              f"grad_batches {PP_MICRO} on the same microbatches "
+              f"{row['ms_per_update']['plain']:.3f} ms/update "
+              f"({ms['plain']}), peak {peak['plain']:.2f} GiB {self.tag}")
+        print(json.dumps({"pp": row}))
+
+    def profile_update(self):
+        states, pp_step, _, batch, _ = self.full
+        pp_step(states[0], batch)
+
 
 def main() -> int:
     import torch
@@ -3431,6 +3716,15 @@ def main() -> int:
                 soem_detect)
     print(json.dumps({"multi_device": md.report}))
 
+    pp = PipelineStages(smoke, dev, tag, tiny_hp, DYYOLO)
+    smoke.phase("7q pp (a): float32 pp steps in 2 and 4 stages, card vs CPU",
+                pp.parity)
+    smoke.phase("7q pp (b): cfg6 in two stages against the plain step",
+                pp.full_width)
+    smoke.phase("7q pp (c, d): Trainer.fit with pp_devices 2, its checkpoint "
+                "in a single-device Trainer, the refusal", pp.trainer,
+                os.path.join(workdir, "pp"))
+
     def time_pair(name, kern, plain, lib, iters=ITERS, warmup=WARMUP,
                   plain_iters=ITERS, plain_warmup=WARMUP):
         """Kernel and plain version in turns, so that neither side owns the
@@ -3656,6 +3950,7 @@ def main() -> int:
               f"Trainer.validate {val_ms:.3f} ms/batch (eval_ap); peak "
               f"device memory {peak:.2f} GiB {tag}")
         print(json.dumps({"train": row}))
+        pp.timing()
 
     smoke.phase("8 timing: training", timing_train)
 
@@ -3710,6 +4005,8 @@ def main() -> int:
                  ("DyYOLO train step cfg6, 2 microbatches = 1 update",
                   lambda: [inputs["train"][2](inputs["train"][1], b)
                            for b in inputs["train"][3][:2]], 2),
+                 ("DyYOLO pp step, cfg6's batch in 2 stages on one card, 2 "
+                  "microbatches = 1 update", pp.profile_update, 2),
                  *rtm.profiles()):
         try:
             profile(*args)

@@ -169,6 +169,7 @@ def test_port_imports_no_jax():
             "import uavdet_tpu_torch.parallel.dryrun\n"
             "import uavdet_tpu_torch.parallel.spatial\n"
             "import uavdet_tpu_torch.parallel.experts\n"
+            "import uavdet_tpu_torch.parallel.pipeline\n"
             "import uavdet_tpu_torch.ops.boxes, uavdet_tpu_torch.ops.decode\n"
             "import uavdet_tpu_torch.ops.targets, uavdet_tpu_torch.ops.losses\n"
             "import uavdet_tpu_torch.ops.map\n"

@@ -242,5 +242,4 @@ def test_sp_ep_step_against_jax_sharded_step(setup):
 def test_layout_checks_take_ep():
     check_layout_supported(ep=2)
     check_layout_supported(sp=2, ep=2)
-    with pytest.raises(ValueError, match="queue 1 item 4"):
-        check_layout_supported(pp=2)
+    assert check_layout_supported(pp=2) is None   # pp: parallel/pipeline.py

@@ -290,3 +290,6 @@ def test_dryrun_multichip_four():
     assert out["sp_ep"]["mesh"] == {"data": 1, "sp": 2, "ep": 2}
     assert np.isfinite(out["sp_ep"]["loss"])
     assert out["sp_ep"]["local_rows"] == 4
+    # the third mesh: 4 pp stages, 4 microbatches of 2 rows, every rank
+    assert np.isfinite(out["pp_loss"]) and out["pp"]["stages"] == 4
+    assert out["pp"]["rows"] == 8 and len(out["pp"]["ranges"]) == 4

@@ -343,16 +343,22 @@ def test_dryrun_multichip_two():
     assert out["detections"] == [4, 16, 4] and out["step"] == 1
     assert out["sp_ep"]["mesh"] == {"data": 1, "sp": 2, "ep": 1}
     assert np.isfinite(out["sp_ep"]["loss"])
+    # mesh 3: two pp stages in each rank's process, the ranks agreeing
+    assert np.isfinite(out["pp_loss"])
+    assert out["pp"]["stages"] == out["pp"]["microbatches"] == 2
+    assert out["pp"]["rows"] == 4 and len(out["pp"]["ranges"]) == 2
 
 
 def test_layout_checks():
-    """``pp`` is refused, naming its ROADMAP item; ``sp`` and ``ep`` are
-    taken (tests/test_torch_spatial.py, tests/test_torch_experts.py)."""
+    """``sp``, ``ep`` and ``pp`` are taken (tests/test_torch_spatial.py,
+    tests/test_torch_experts.py, tests/test_torch_pipeline.py); a size
+    below 1 raises."""
     check_layout_supported(sp=2)
     check_layout_supported(ep=2)
     check_layout_supported(sp=2, ep=2)
-    with pytest.raises(ValueError, match="queue 1 item 4"):
-        check_layout_supported(pp=2)
+    assert check_layout_supported(pp=2) is None
+    with pytest.raises(ValueError, match="at least 1"):
+        check_layout_supported(pp=-1)
     check_layout_supported(1, 1, 1)
     assert [list(row_block(i, 2, 7)) for i in range(2)] == [[0, 1, 2, 3],
                                                            [4, 5, 6]]

@@ -261,7 +261,8 @@ def test_nan_guard_skips_poisoned_batch(pipes, tmp_path):
     ("devices", 2), ("fsdp_devices", 2), ("sp_devices", 2),
     ("ep_devices", 2), ("pp_devices", 2), ("multihost", True)])
 def test_multi_device_keys_raise(pipes, tmp_path, key, value):
-    """pp is not ported and raises, naming its ROADMAP item; devices,
+    """pp_devices trains over two stages on the CPU in this one process
+    (tests/test_torch_pipeline.py holds it against the plain step); devices,
     fsdp_devices, sp_devices, ep_devices and multihost are accepted: in one
     process with no process group (none running, none named by the
     environment) the trainer warns as the JAX one does and trains on one
@@ -269,8 +270,10 @@ def test_multi_device_keys_raise(pipes, tmp_path, key, value):
     tests/test_torch_spatial.py and tests/test_torch_experts.py run them on
     process groups)."""
     if key == "pp_devices":
-        with pytest.raises(ValueError, match="ROADMAP.md queue 1 item 4"):
-            _port(tmp_path, pipes, **{key: value})
+        t = _port(tmp_path, pipes, train_batches=1, **{key: value})
+        assert t.mesh is None and t.pm is not None
+        assert len(t.pm.stages) == value and t.eval_model is not t.model
+        assert np.isfinite(t.fit()["val_loss"])
         return
     t = _port(tmp_path, pipes, train_batches=1, **{key: value})
     assert t.mesh is None and t.train_model is t.model

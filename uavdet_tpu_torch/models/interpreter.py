@@ -69,20 +69,31 @@ class YOLOInterpreter(nn.Module):
         """x: (B, H, W, C) NHWC, the frames (``start`` 0) or the activation
         entering token ``start``. -> one DetectionResults per head."""
         x = x.to(self.dtype).permute(0, 3, 1, 2)   # NCHW view of NHWC memory
-        taps, routes = [], []
-        for tok, i in zip(self.tokens[start:], self.first_layer[start:]):
-            kind = tok[0]
-            if kind == "B":
-                x = self.layers[i](x)
-                if tok[1] == 8:
-                    routes.append(x)
-            elif kind == "S":
-                x = self.layers[i + 1](self.layers[i](x))
-                taps.append(self.layers[i + 2](x))
-            elif kind == "U":
-                x = torch.cat([self.layers[i](x), routes.pop()], dim=1)
-            elif kind == "DyConv":
-                x = self.layers[i](x, self.attn_temperature)
-            else:
-                x = self.layers[i](x)
+        taps = []
+        run_tokens(self.layers, self.tokens[start:], self.first_layer[start:],
+                   x, [], taps, self.attn_temperature)
         return self.yolo_head(taps)
+
+
+def run_tokens(layers, tokens, first_layer, x: torch.Tensor, routes: list,
+               taps: list, attn_temperature: float) -> torch.Tensor:
+    """Apply ``tokens`` to the NCHW activation ``x``: token j runs the
+    module ``layers[first_layer[j]]`` (an "S" token the two after it too).
+    ``routes`` (the route stack) and ``taps`` (the heads' inputs) are lists
+    that the tokens push to and pop from in place. -> the activation."""
+    for tok, i in zip(tokens, first_layer):
+        kind = tok[0]
+        if kind == "B":
+            x = layers[i](x)
+            if tok[1] == 8:
+                routes.append(x)
+        elif kind == "S":
+            x = layers[i + 1](layers[i](x))
+            taps.append(layers[i + 2](x))
+        elif kind == "U":
+            x = torch.cat([layers[i](x), routes.pop()], dim=1)
+        elif kind == "DyConv":
+            x = layers[i](x, attn_temperature)
+        else:
+            x = layers[i](x)
+    return x

@@ -19,8 +19,11 @@ tiny DyYOLO (``TINY_CONFIG``, a copy of ``__graft_entry__.TINY_CONFIG``) at
 dry-run), then a sharded detect of the same model; then, where n is even,
 the JAX dry-run's second mesh, data x sp x ep (sp 2, ep 2 where n / 2 is
 even): one train step of a fresh model placed on it and one spatial detect
-(``make_detector(mesh=, spatial=True)``) of its weights. The JAX dry-run's
-``pp`` part is left out until that axis is ported.
+(``make_detector(mesh=, spatial=True)``) of its weights; then the JAX
+dry-run's third mesh, ``pp``: in each rank's own process, one pipelined
+train step of a fresh model over S stages of the rank's device (S = 4 where
+n >= 4, else 2; M = S microbatches; ``pp_loss``). The ranks must agree on
+every loss.
 
     python -m uavdet_tpu_torch.parallel.dryrun --devices 4 [--device cuda]
 """
@@ -133,6 +136,7 @@ def dryrun_rank(device: str = "cpu", size: int = 64) -> dict:
     from ..utils.seeding import seeded_model
     from .mesh import copy_full_weights, make_mesh, shard_model
     from .multihost import local_batch_rows, local_device, shard_host_batch
+    from .pipeline import PipelinedModel, make_pp_trainer_step
 
     n = dist.get_world_size()
     n_fsdp = 2 if n % 2 == 0 else 1
@@ -197,6 +201,20 @@ def dryrun_rank(device: str = "cpu", size: int = 64) -> dict:
                                  "ep": n_ep},
                         "local_rows": len(mine.image),
                         "valid": int(det.valid.sum())}
+    # mesh 3: pp, one process over the stages on this rank's device
+    n_pp = 4 if n >= 4 else 2
+    pm = PipelinedModel.from_hparams(hp, n_pp, [dev] * n_pp)
+    state = init_state(pm.model, *build_optimizer(pm.model.parameters(), hp))
+    rows = batch // n_pp * n_pp
+    pp_batch = BatchData(*(torch.from_numpy(a[:rows]).to(dev) for a in (
+        images, boxes, np.ones((batch, 1), bool))))
+    pp_loss = float(make_pp_trainer_step(pm, hp, size, n_pp)(
+        state, pp_batch)["loss"])
+    if not np.isfinite(pp_loss):
+        raise FloatingPointError(f"non-finite pp loss {pp_loss}")
+    out["pp_loss"] = pp_loss
+    out["pp"] = {"stages": n_pp, "microbatches": n_pp, "rows": rows,
+                 "ranges": pm.ranges}
     return out
 
 
@@ -207,7 +225,7 @@ def dryrun_multichip(n_devices: int, device: str = "cpu",
     reports = launch("uavdet_tpu_torch.parallel.dryrun:dryrun_rank",
                      n_devices, args=(device,), device=device,
                      timeout=timeout)
-    for key in ("loss", "detections", "valid", "sp_ep"):
+    for key in ("loss", "detections", "valid", "sp_ep", "pp_loss"):
         if len({json.dumps(r.get(key)) for r in reports}) != 1:
             raise RuntimeError(f"the ranks disagree on {key}: "
                                f"{[r[key] for r in reports]}")

@@ -35,8 +35,8 @@ Deliberate deviations: FSDP2 shards dimension 0 of every parameter, where
 the JAX package shards the last axis of kernels of 2^14 elements or more
 (``mesh.py:158-160``); the arithmetic is the same, only the layout differs.
 The JAX refusal of fsdp x sp answers an XLA miscompile and is not copied:
-FSDP2 gathers whole parameters before each use. ``pp`` is not ported yet;
-``check_layout_supported`` refuses it, naming its ROADMAP item.
+FSDP2 gathers whole parameters before each use. ``pp`` is one process over
+its stage devices (``parallel/pipeline.py``), on no mesh.
 """
 
 import contextlib
@@ -49,21 +49,16 @@ from torch import nn
 AXES = ("data", "fsdp", "sp", "ep")
 BATCH_AXES = ("data", "fsdp", "ep")
 
-# the ROADMAP items of the axes that are not ported yet
-NOT_PORTED = {
-    "pp_devices": "ROADMAP.md queue 1 item 4 (pp: the stage split of "
-                  "parallel/pipeline.py)",
-}
-
 
 def check_layout_supported(sp: int = 1, ep: int = 1, pp: int = 1) -> None:
-    """Raise for an axis the port has not ported (size above 1): ``pp``.
-    ``sp`` and ``ep`` are taken, in any composition with data and fsdp."""
-    for key, n in (("pp_devices", pp),):
-        if int(n or 1) > 1:
-            raise ValueError(f"train.trainer.{key}={n}: the torch port "
-                             f"trains over data x fsdp x sp x ep; "
-                             f"{key[:2]} is {NOT_PORTED[key]}")
+    """Raise for an axis size below 1. Every axis of the JAX package is
+    ported, in any composition it takes: ``sp`` and ``ep`` with data and
+    fsdp here, ``pp`` alone (``parallel/pipeline.py``; the Trainer refuses
+    it with fsdp, sp or ep, as the JAX trainer does)."""
+    for key, n in (("sp_devices", sp), ("ep_devices", ep),
+                   ("pp_devices", pp)):
+        if int(n or 1) < 1:
+            raise ValueError(f"train.trainer.{key}={n} must be at least 1")
 
 
 def make_mesh(n_data: int, n_fsdp: int = 1, n_sp: int = 1, n_ep: int = 1,

@@ -9,6 +9,11 @@ model's parameters and buffers (the BatchNorm running statistics among
 them), the optimizer's and the scheduler's state, the step, and where the
 accumulation stands (``mini_step`` and the gradients accumulated so far).
 
+A model split into ``pp`` stages (``parallel.PipelinedModel``) is one
+module whose tensors lie on the stages' devices: its checkpoint is the
+single-device one, key for key and index for index, and each restores into
+the other.
+
 On a mesh (a model placed by ``parallel.shard_model``) there is one format
 all the same. Rank 0 writes the full state: the model without DDP's
 ``module.`` prefix and with FSDP2's shards gathered, the optimizer's state
@@ -100,8 +105,9 @@ class CheckpointManager:
 
     def restore(self, state: TrainState, name: str = "last") -> TrainState:
         """Load the named checkpoint into ``state`` (its model, optimizer
-        and scheduler, in place, on the model's device) and return it. On a
-        mesh rank 0 reads it and broadcasts it to the others."""
+        and scheduler, in place, each tensor on its parameter's device, the
+        stages' devices under ``pp``) and return it. On a mesh rank 0 reads
+        it and broadcasts it to the others."""
         if _on_mesh(state.model):
             return _restore_broadcast(
                 state, os.path.join(self.ckpt_dir, name, _FILE))
@@ -112,7 +118,7 @@ class CheckpointManager:
         state.optimizer.load_state_dict(blob["optimizer"])
         state.scheduler.load_state_dict(blob["scheduler"])
         for p, g in zip(state.model.parameters(), blob["grads"], strict=True):
-            p.grad = g
+            p.grad = None if g is None else g.to(p.device)   # pp: per stage
         state.step, state.mini_step = blob["step"], blob["mini_step"]
         return state
 

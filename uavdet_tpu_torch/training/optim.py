@@ -16,7 +16,8 @@ pieces are an optimizer, a scheduler and ``update``:
   ``update`` steps the optimizer once every k microbatches.
 * Clipping by the global norm of that mean gradient, right before the
   update, as optax's ``clip_by_global_norm`` inside the chain (over
-  FSDP2's shards and ``ep``'s expert slices, the whole model's norm).
+  FSDP2's shards, ``ep``'s expert slices and ``pp``'s stage devices, the
+  whole model's norm).
 """
 
 import math
@@ -79,9 +80,18 @@ def clip_by_global_norm_(grads: Sequence[torch.Tensor], max_norm: float,
     local shards summed over the ranks that shard them; under ``ep`` (a
     gradient whose entry of ``ep_groups`` is a process group: an expert
     slice's) the squared norms of the slices summed over that ``ep``
-    group."""
+    group. Where the gradients lie on several devices (the stages of
+    ``pp``), each device's squared norms are summed there, the sums meet on
+    the first gradient's device, and the scale goes back to each device.
+    """
     from torch.distributed.tensor import DTensor
     local = [g.to_local() if isinstance(g, DTensor) else g for g in grads]
+    by_device = {}
+    for g in local:
+        by_device.setdefault(g.device, []).append(g)
+    if len(by_device) > 1:
+        _clip_across_devices(list(by_device.values()), max_norm)
+        return
     norms = torch.stack([torch.linalg.vector_norm(g) for g in local])
     sharded = [isinstance(g, DTensor) for g in grads]
     sliced = [g is not None for g in (ep_groups or ())]
@@ -107,6 +117,21 @@ def clip_by_global_norm_(grads: Sequence[torch.Tensor], max_norm: float,
         norm = (torch.where(whole, sq, 0.0).sum() + total).sqrt()
     scale = torch.where(norm < max_norm, 1.0, max_norm / norm)
     torch._foreach_mul_(local, scale)
+
+
+def _clip_across_devices(groups: Sequence[Sequence[torch.Tensor]],
+                         max_norm: float) -> None:
+    """``clip_by_global_norm_`` of gradients in ``groups``, each group on
+    one device, without a host sync."""
+    home = groups[0][0].device
+    squares = [torch.stack([torch.linalg.vector_norm(g) for g in group])
+               .square().sum().to(home, non_blocking=True)
+               for group in groups]
+    norm = torch.stack(squares).sum().sqrt()
+    scale = torch.where(norm < max_norm, 1.0, max_norm / norm)
+    for group in groups:
+        torch._foreach_mul_(list(group),
+                            scale.to(group[0].device, non_blocking=True))
 
 
 def update(state: TrainState, grad_batches: int = 1,

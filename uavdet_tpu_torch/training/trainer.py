@@ -36,7 +36,22 @@ whose weights (FSDP2's shards, ``ep``'s slices) are gathered once per
 validation pass; under ``sp`` the validation loss runs on each rank's band
 of rows and the detector is the spatial one (``make_detector(mesh=,
 spatial=True)``). Rank 0 writes the checkpoints and the metrics.
-``pp_devices`` above 1 raises, naming its ROADMAP item.
+
+``pp_devices`` above 1 (with ``pp_microbatches``, ``pp_devices`` unless
+set) trains in one process over S = ``pp_devices`` stage devices
+(``parallel.pipeline``): ``device="cuda"`` takes ``cuda:0`` to
+``cuda:{S-1}``, ``device="cpu"`` S stages on the CPU, a list of S devices
+is taken as given (two stages may share a card). Each batch is cut into
+``pp_microbatches`` microbatches that stream through the stages; ``remat``
+has no effect there (the JAX pp step takes none). It refuses what the JAX
+trainer refuses: ``multihost``, fsdp, sp or ep above 1, ``devices`` other
+than 1 or ``pp_devices``, a batch size that ``pp_microbatches`` does not
+divide, fewer CUDA devices than stages; and models without a
+``layer_config``. Validation and the AP run on a plain copy of the model on
+the first stage's device, filled once per validation pass. The optimizer
+runs over the model's parameters in the whole model's order, so a pp
+checkpoint is the single-device one and each restores into the other (the
+JAX pp checkpoint is its packed form).
 
 The model is built at construction with float32 parameters and seeded
 weights (``train.seed``, ``utils.seeding.init_weights``); ``fit`` trains it
@@ -59,10 +74,12 @@ import torch
 import torch.distributed as dist
 
 from ..ops.map import MeanAveragePrecision, add_detections
-from ..parallel import (check_batch_divisible, check_layout_supported,
-                        copy_full_weights, init_multihost, local_batch_rows,
-                        local_device, make_mesh, model_stride, row_band,
-                        shard_host_batch, shard_model)
+from ..parallel import (PipelinedModel, check_batch_divisible,
+                        check_layout_supported, copy_full_weights,
+                        init_multihost, local_batch_rows, local_device,
+                        make_mesh, make_pp_eval_step, make_pp_trainer_step,
+                        model_stride, row_band, shard_host_batch, shard_model,
+                        stage_devices)
 from ..utils.datatypes import BatchData
 from ..utils.seeding import seeded_model
 from .checkpoint import CheckpointManager
@@ -126,9 +143,17 @@ class Trainer:
         self.input_size = int(config.dataset.image_size[0])
         self.metrics = metrics or MetricsWriter()
         self.multihost = bool(tcfg.get("multihost", False))
-        self.mesh = self._make_mesh(tcfg, device)
-        self.device = (local_device(device) if self.mesh is not None
-                       else torch.device(device))
+        self.n_pp = int(tcfg.get("pp_devices", 1) or 1)
+        self.pp_microbatches = (int(tcfg.get("pp_microbatches", 0) or 0)
+                                or self.n_pp)
+        stages = None
+        if self.n_pp > 1:   # one process, no process group
+            stages = self._pp_stage_devices(tcfg, device)
+            self.mesh, self.device = None, stages[0]
+        else:
+            self.mesh = self._make_mesh(tcfg, device)
+            self.device = (local_device(device) if self.mesh is not None
+                           else torch.device(device))
 
         hparams = config.model.hparams
         self.model = seeded_model(config.model.name, hparams,
@@ -136,11 +161,15 @@ class Trainer:
                                   dtype=torch.float32)
         # the model the steps run: placed on the mesh; validation and the
         # detector run a plain module with the full weights (the model
-        # itself under DDP, a copy under FSDP2)
+        # itself under DDP, a copy under FSDP2, ep and pp)
         self.train_model = self.model
         self.eval_model = self.model
         self.train_rows = self.val_rows = None
-        if self.mesh is not None:
+        self.pm = None
+        if stages is not None:
+            self.pm = PipelinedModel(self.model, self.n_pp, stages)
+            self.eval_model = self.pm.eval_model
+        elif self.mesh is not None:
             bs = int(config.dataset.batch_size)
             check_batch_divisible(bs, self.mesh)
             if self.mesh["sp"].size() > 1:
@@ -170,6 +199,30 @@ class Trainer:
         self.ckpt = CheckpointManager(
             ckpt_cfg.dir, monitor=ckpt_cfg.monitor, mode=ckpt_cfg.mode)
         self.epoch_seconds: list = []   # wall-clock per epoch
+
+    def _pp_stage_devices(self, tcfg, device) -> list:
+        """The stage devices of ``pp_devices``, after the JAX trainer's
+        refusals (``uavdet_tpu/training/trainer.py``)."""
+        n_pp = self.n_pp
+        if self.multihost:
+            raise ValueError("train.trainer.pp_devices > 1 is single-process "
+                             "only (multihost pipeline stages unsupported)")
+        inner = math.prod(int(tcfg.get(k, 1) or 1) for k in (
+            "fsdp_devices", "sp_devices", "ep_devices"))
+        if inner > 1:
+            raise ValueError(
+                "train.trainer.pp_devices > 1 cannot combine with fsdp/sp/ep:"
+                " pipeline parallelism runs its stages in one process "
+                "(parallel.pipeline)")
+        n_devices = int(tcfg.get("devices", 1) or 1)
+        if n_devices not in (1, n_pp):
+            raise ValueError(f"train.trainer.devices={n_devices} must equal "
+                             f"pp_devices={n_pp} (or be left at 1)")
+        bs = int(self.config.dataset.batch_size)
+        if bs % self.pp_microbatches:
+            raise ValueError(f"dataset.batch_size={bs} must be divisible by "
+                             f"pp_microbatches={self.pp_microbatches}")
+        return stage_devices(device, n_pp)
 
     def _make_mesh(self, tcfg, device):
         """The data x fsdp x sp x ep mesh of ``devices``, or None (one
@@ -209,6 +262,14 @@ class Trainer:
 
     def _build_steps(self):
         hparams = self.config.model.hparams
+        if self.pm is not None:
+            return (make_pp_trainer_step(
+                self.pm, hparams, self.input_size, self.pp_microbatches,
+                compute_dtype=self.compute_dtype,
+                grad_batches=self.grad_batches,
+                grad_clip_val=self.grad_clip_val, nan_guard=self.nan_guard),
+                make_pp_eval_step(self.pm, hparams, self.input_size,
+                                  compute_dtype=self.compute_dtype))
         train_step = make_train_step(
             self.train_model, hparams, self.input_size,
             compute_dtype=self.compute_dtype, grad_batches=self.grad_batches,
@@ -342,7 +403,7 @@ class Trainer:
         n_val = _limit(len(self.val_pipe), self.val_limit)
         ms = []
         ap_metric = None
-        if self.eval_model is not self.model:   # FSDP2, ep: gathered here
+        if self.eval_model is not self.model:   # FSDP2, ep, pp
             copy_full_weights(self.train_model, self.eval_model)
         if self.eval_ap:
             from ..inference import make_detector
