@@ -205,6 +205,16 @@ nor PyYAML. The phases, in order:
      ``last`` restored into a single-device Trainer bitwise; (d)
      ``pp_devices`` above ``torch.cuda.device_count()`` with
      ``device="cuda"`` raises;
+  7r. the bench, as a user runs it: ``python -m uavdet_tpu_torch.bench``
+     in a fresh process for the default cell, ``--config 1`` to ``6``
+     (``--iters 5 --warmup 2``), ``--host-data --epochs 1`` and
+     ``--fit-rate``, one after another: each exits with 0 and prints
+     exactly one parsable JSON line with a positive value (``vs_baseline``
+     a positive number for the default cell, cfg1 and cfg2, else null),
+     and its stderr reports the launches of its timed calls as its path
+     predicts (A, B, C per call of the default cell, cfg2 and per
+     ``--host-data`` batch; C per call of cfg1 and cfg4; D three times and
+     C once per call of cfg3; none in cfg5, cfg6 and ``--fit-rate``);
   8. times, with CUDA events, medians after warm-up: the four detectors per
      batch, and each kernel at its main-path shapes beside its plain
      version and beside one bf16 ``F.conv2d(groups=B)`` call that computes
@@ -230,7 +240,9 @@ nor PyYAML. The phases, in order:
      operators and through the CUDA wrappers called directly; RTMUAVDet's
      detector per batch of 8, the NMS kernel on its candidates (8, 512)
      beside its plain version and bound, and a cfg5 step (an ``{"rtm":
-     ...}`` JSON line, with 7n's readings);
+     ...}`` JSON line, with 7n's readings); then 7r's bench lines beside
+     this phase's reading of the same cell (a ``{"bench": ...}`` JSON
+     line);
   9. a ``torch.profiler`` window of each detector, of 7k's DyYOLO artifact,
      of two cfg6 train microbatches, of two 7q pp updates, of the RTMUAVDet
      detector and of two cfg5 steps: device time by kernel.
@@ -382,6 +394,16 @@ PP_PARAM_TOL = 1e-3                  # of each tensor's largest |value|
 PP_EPOCHS, PP_TRAIN_BATCHES, PP_VAL_BATCHES = 2, 2, 1   # (c)
 PP_ITERS, PP_WARMUP = 5, 2           # (e): timed updates
 
+# the bench (7r): one fresh process per cell, as a user runs it; the cells
+# with timed calls take BENCH_TIMED
+BENCH_CELLS = (("default", ()), *((f"cfg{n}", ("--config", str(n)))
+                                  for n in range(1, 7)),
+               ("host-data", ("--host-data", "--epochs", "1")),
+               ("fit-rate", ("--fit-rate",)))
+BENCH_TIMED = ("--iters", "5", "--warmup", "2")
+BENCH_WITH_BASELINE = ("default", "cfg1", "cfg2")
+BENCH_TIMEOUT = 300                  # seconds per bench process
+
 KERNELS = {
     "stem_l1": ("uavdet_tpu_torch/csrc/stem_l1.cu",
                 "uavdet_tpu/ops/pallas_stem_split.py:62"),
@@ -459,6 +481,18 @@ EXPECTED_LAUNCHES = {
     # per pp step (7q), per validation batch of Trainer.fit with pp_devices
     "DyYOLO pp train step": {},
     "Trainer.fit DyYOLO pp": {"stem_l1": 1, "stem_l2": 1, "nms": 1},
+    # per timed call (warm-up included) of a bench process (7r): a
+    # detector call, a train step, a batch of --host-data, a step of each
+    # of --fit-rate's two Trainer.fit runs
+    "bench default": {"stem_l1": 1, "stem_l2": 1, "nms": 1},
+    "bench cfg1": {"nms": 1},
+    "bench cfg2": {"stem_l1": 1, "stem_l2": 1, "nms": 1},
+    "bench cfg3": {"nms": 1, "dyconv": 3},
+    "bench cfg4": {"nms": 1},
+    "bench cfg5": {},
+    "bench cfg6": {},
+    "bench host-data": {"stem_l1": 1, "stem_l2": 1, "nms": 1},
+    "bench fit-rate": {},
     # one run of a ladder's entry point: every stage, warm-up included
     "l2_ablate": {"stem_l2_stage": 5 * (LADDER_ITERS + 3)},
     "block_ablate": {"post_stem_block": 4 * (LADDER_ITERS + 3)},
@@ -1092,7 +1126,7 @@ class RTMAndMosaic:
               f"{self.tag}")
         out["mosaic"] = self.inputs.get("mosaic")
         print(json.dumps({"rtm": out}))
-        return row
+        return out
 
     def profiles(self):
         """(name, fn, batches) of phase 9's windows on these paths."""
@@ -1105,6 +1139,63 @@ class RTMAndMosaic:
             out.append(("RTMUAVDet train step cfg5, 2 steps",
                         lambda: [step(imgs, t) for _ in range(2)], 2))
         return out
+
+
+def run_bench(smoke, repo: str) -> dict:
+    """7r: ``python -m uavdet_tpu_torch.bench`` for each cell in a fresh
+    process, as a user runs it. Each must exit with 0, print exactly one
+    parsable JSON line with a positive value (``vs_baseline`` a positive
+    number for the cells with the reference structure, else null) and
+    report on stderr the launches its path predicts per timed call.
+    -> the parsed lines by cell."""
+    import os
+    import subprocess
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()   # the processes share the card with this one
+    lines = {}
+    t0 = time.perf_counter()
+    for case, args in BENCH_CELLS:
+        if case not in ("host-data", "fit-rate"):
+            args = (*args, *BENCH_TIMED)
+        t1 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "uavdet_tpu_torch.bench", *args],
+            cwd=repo, env=dict(os.environ, PYTHONPATH=repo),
+            capture_output=True, text=True, timeout=BENCH_TIMEOUT)
+        seconds = time.perf_counter() - t1
+        notes = [ln for ln in res.stderr.splitlines() if ln.startswith("# ")]
+        for ln in notes:
+            print("  " + ln[:400])
+        if res.returncode != 0:
+            print(res.stderr[-3000:])
+        out = res.stdout.strip().splitlines()
+        try:
+            line = json.loads(out[0]) if len(out) == 1 else None
+        except ValueError:
+            line = None
+        ok = (res.returncode == 0 and isinstance(line, dict)
+              and set(line) == {"metric", "value", "unit", "vs_baseline"}
+              and line["unit"] == "fps" and line["value"] > 0)
+        if ok:
+            vs = line["vs_baseline"]
+            ok = ((isinstance(vs, float) and vs > 0)
+                  if case in BENCH_WITH_BASELINE else vs is None)
+        smoke.check(f"bench {case}", ok, f"rc {res.returncode} in "
+                    f"{seconds:.1f} s, stdout {out}")
+        reports = [json.loads(ln[len("# launches: "):]) for ln in notes
+                   if ln.startswith("# launches: ")]
+        smoke.check(f"bench {case} reports its launches",
+                    len(reports) == (2 if case == "fit-rate" else 1),
+                    f"{len(reports)} launch reports")
+        for rep in reports:
+            count_launches(smoke, None, f"bench {case}", rep["calls"],
+                           counts=rep["counts"])
+        if ok:
+            lines[case] = line
+    print(f"7r: {len(BENCH_CELLS)} bench processes in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return lines
 
 
 def md_f32_losses(hp, batches, dev, mesh=None, fsdp=None):
@@ -3724,6 +3815,10 @@ def main() -> int:
     smoke.phase("7q pp (c, d): Trainer.fit with pp_devices 2, its checkpoint "
                 "in a single-device Trainer, the refusal", pp.trainer,
                 os.path.join(workdir, "pp"))
+    bench_lines = smoke.phase("7r bench: python -m uavdet_tpu_torch.bench per "
+                              "cell in a fresh process", run_bench, smoke,
+                              repo) or {}
+    phase8 = {}   # fps (or images/s) of each bench cell in phase 8
 
     def time_pair(name, kern, plain, lib, iters=ITERS, warmup=WARMUP,
                   plain_iters=ITERS, plain_warmup=WARMUP):
@@ -3744,16 +3839,19 @@ def main() -> int:
     @torch.inference_mode()
     def timing():
         ms = cuda_ms(lambda: detect(frames))
+        phase8["default"] = BATCH * 1000.0 / ms
         print(f"detector DyYOLO @{SIZE} bs={BATCH} uint8 -> Detections: "
               f"{ms:.3f} ms/batch, {BATCH * 1000.0 / ms:.1f} fps {tag}")
         ms = cuda_ms(lambda: soem_detect(soem_frames), SOEM_ITERS,
                      SOEM_WARMUP)
+        phase8["cfg3"] = SOEM_BATCH * 1000.0 / ms
         print(f"detector DySOEM_SimFPN @{SOEM_SIZE} bs={SOEM_BATCH} uint8 -> "
               f"Detections: {ms:.3f} ms/batch, "
               f"{SOEM_BATCH * 1000.0 / ms:.1f} fps (median of {SOEM_ITERS}) "
               f"{tag}")
         frame = frames[:1]
         ms = cuda_ms(lambda: base_detect(frame))
+        phase8["cfg1"] = 1000.0 / ms
         print(f"detector BaselineModel @{SIZE} bs=1 uint8 -> Detections: "
               f"{ms:.3f} ms/batch, {1000.0 / ms:.1f} fps {tag}")
         art = inputs.get("exported")
@@ -3794,6 +3892,7 @@ def main() -> int:
         print(json.dumps({"dispatcher_host_us": host}))
         rgb, ir = inputs["dual"]
         ms = cuda_ms(lambda: dual_detect(rgb, ir))
+        phase8["cfg2"] = 2 * DUAL_BATCH * 1000.0 / ms
         print(f"detector DyYOLO dual @{SIZE} {DUAL_BATCH} RGB {RGB_HW} + "
               f"{DUAL_BATCH} IR {IR_HW} uint8 -> Detections: {ms:.3f} "
               f"ms/batch, {2 * DUAL_BATCH * 1000.0 / ms:.1f} fps {tag}")
@@ -3950,14 +4049,34 @@ def main() -> int:
               f"Trainer.validate {val_ms:.3f} ms/batch (eval_ap); peak "
               f"device memory {peak:.2f} GiB {tag}")
         print(json.dumps({"train": row}))
+        phase8["cfg6"] = row["images_per_s"]
         pp.timing()
 
     smoke.phase("8 timing: training", timing_train)
 
     def timing_rtm():
-        smoke.stats["nms"]["rtm"] = rtm.timing()
+        out = rtm.timing()
+        smoke.stats["nms"]["rtm"] = out["nms"]
+        phase8.update(cfg4=out["detector"]["fps"],
+                      cfg5=out["train"]["images_per_s"])
 
     smoke.phase("8 timing: RTMUAVDet", timing_rtm)
+
+    def bench_beside_phase8():
+        """7r's lines beside phase 8's reading of the same cell: three
+        windows of calls issued back to back (median) against one call
+        between two CUDA events (median)."""
+        for case, line in bench_lines.items():
+            p8 = phase8.get(case)
+            print(f"bench {case}: {line['value']} per s, vs_baseline "
+                  f"{line['vs_baseline']} | phase 8: "
+                  + (f"{p8:.1f} per s" if p8 else "no reading of this cell")
+                  + f" {tag}")
+        print(json.dumps({"bench": {case: {**line, "phase8": phase8.get(case)}
+                                    for case, line in bench_lines.items()}}))
+
+    smoke.phase("8 timing: 7r's bench lines beside phase 8",
+                bench_beside_phase8)
 
     def profile(name, fn, batches):
         """Device time by kernel over a few batches, and the device's idle

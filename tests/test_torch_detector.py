@@ -192,6 +192,7 @@ def test_port_imports_no_jax():
             "import uavdet_tpu_torch.models.rtm_uav_det\n"
             "import uavdet_tpu_torch.training.rtm\n"
             "import uavdet_tpu_torch.ops.resize\n"
+            "import uavdet_tpu_torch.bench, uavdet_tpu_torch._bench_reference\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'uavdet_tpu', 'yaml')]\n"
             "assert not bad, bad\n"

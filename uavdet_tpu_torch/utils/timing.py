@@ -3,6 +3,7 @@ every kept number stands beside."""
 
 import statistics
 import subprocess
+import time
 
 import torch
 
@@ -51,3 +52,27 @@ def back_to_back_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def time_total(run, iters: int, warmup: int, device="cuda") -> float:
+    """Seconds taken by ``iters`` calls of ``run`` issued back to back, after
+    ``warmup`` calls: the throughput of pipelined calls, where the host's gaps
+    between calls count because the card idles in them. On a CUDA device the
+    window lies between two CUDA events recorded after a synchronize; on any
+    other device it is the host clock's."""
+    for _ in range(warmup):
+        run()
+    if torch.device(device).type != "cuda":
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            run()
+        return time.perf_counter() - t0
+    torch.cuda.synchronize(device)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        run()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / 1e3
