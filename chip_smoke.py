@@ -215,6 +215,17 @@ nor PyYAML. The phases, in order:
      predicts (A, B, C per call of the default cell, cfg2 and per
      ``--host-data`` batch; C per call of cfg1 and cfg4; D three times and
      C once per call of cfg3; none in cfg5, cfg6 and ``--fit-rate``);
+  7s. the section probes, through their ``main(argv)`` in this process:
+     ``scripts.roofline_table`` at (16, 640) (its total 2470.9 GFLOP, the
+     JAX walk's; the stem's floor printed beside kernels A and B's
+     bounds), ``scripts.section_probe`` on phase 6's DyYOLO and
+     ``scripts.cfg3_section_probe`` on phase 7's DySOEM_SimFPN (``--iters
+     10 --warmup 3``): the sectioned call's heads and Detections bitwise
+     equal to ``Detector.heads`` and ``detect`` on the same frames, its
+     launches (A, B, C once; D three times and C once), the sum of the
+     sections within 5 % of ``detect`` timed back to back, every section
+     positive with a floor share but post; one ``{"sections": ...}``
+     JSON line; the phase within 60 s;
   8. times, with CUDA events, medians after warm-up: the four detectors per
      batch, and each kernel at its main-path shapes beside its plain
      version and beside one bf16 ``F.conv2d(groups=B)`` call that computes
@@ -404,6 +415,14 @@ BENCH_TIMED = ("--iters", "5", "--warmup", "2")
 BENCH_WITH_BASELINE = ("default", "cfg1", "cfg2")
 BENCH_TIMEOUT = 300                  # seconds per bench process
 
+# the section probes (7s), in this process on the models of phases 6 and 7
+SECTIONS_ARGS = ("--iters", "10", "--warmup", "3")
+SECTIONS_SUM_TOL = 0.05              # sum of sections against detect, relative
+SECTIONS_SECONDS = 60                # the phase's time limit
+ROOFLINE_GFLOP = 2470.9              # the JAX walk's total at (16, 640)
+# PERF.md section 6: kernels A and B's bounds at the default cell, in ms
+STEM_KERNEL_BOUNDS_MS = (0.131, 0.188)
+
 KERNELS = {
     "stem_l1": ("uavdet_tpu_torch/csrc/stem_l1.cu",
                 "uavdet_tpu/ops/pallas_stem_split.py:62"),
@@ -493,6 +512,9 @@ EXPECTED_LAUNCHES = {
     "bench cfg6": {},
     "bench host-data": {"stem_l1": 1, "stem_l2": 1, "nms": 1},
     "bench fit-rate": {},
+    # per sectioned call of the section probes (7s), warm-up included
+    "section_probe DyYOLO": {"stem_l1": 1, "stem_l2": 1, "nms": 1},
+    "cfg3_section_probe DySOEM_SimFPN": {"nms": 1, "dyconv": 3},
     # one run of a ladder's entry point: every stage, warm-up included
     "l2_ablate": {"stem_l2_stage": 5 * (LADDER_ITERS + 3)},
     "block_ablate": {"post_stem_block": 4 * (LADDER_ITERS + 3)},
@@ -1196,6 +1218,65 @@ def run_bench(smoke, repo: str) -> dict:
     print(f"7r: {len(BENCH_CELLS)} bench processes in "
           f"{time.perf_counter() - t0:.1f} s")
     return lines
+
+
+def run_sections(smoke, model, soem_model) -> dict:
+    """7s: ``scripts.roofline_table``, ``scripts.section_probe`` on the
+    DyYOLO of phase 6 and ``scripts.cfg3_section_probe`` on the
+    DySOEM_SimFPN of phase 7, each through its ``main(argv)`` in this
+    process. -> the ``{"sections": ...}`` line's content."""
+    import torch
+    from uavdet_tpu_torch.scripts import (cfg3_section_probe, roofline_table,
+                                          section_probe)
+    t0 = time.perf_counter()
+    table = roofline_table.main(["--batch", str(BATCH), "--size", str(SIZE)])
+    gflop = table["total"]["gflop"]
+    smoke.check("roofline_table totals", round(gflop, 1) == ROOFLINE_GFLOP,
+                f"{gflop:.1f} GFLOP at ({BATCH}, {SIZE}), the JAX walk's "
+                f"{ROOFLINE_GFLOP}")
+    stem_floor = table["sections"]["stem"]["floor_ms"]
+    a, b = STEM_KERNEL_BOUNDS_MS
+    print(f"stem floor {stem_floor:.3f} ms (the walk: bf16 frames in, bf16 "
+          f"out) beside kernels A + B's bounds {a} + {b} = {a + b:.3f} ms "
+          "(PERF.md section 6: uint8 frames in, and A's channel sums)")
+    out = {"roofline": {"gflop": gflop, "floor_ms": table["total"]
+                        ["floor_ms"], "stem_floor_ms": stem_floor,
+                        "stem_kernel_bounds_ms": a + b}}
+    for path, probe, mdl in (
+            ("section_probe DyYOLO", section_probe, model),
+            ("cfg3_section_probe DySOEM_SimFPN", cfg3_section_probe,
+             soem_model)):
+        torch.cuda.synchronize()
+        rep = probe.main(list(SECTIONS_ARGS), model=mdl)
+        smoke.check(f"{path}: sectioned heads bitwise", rep["heads_equal"],
+                    "against Detector.heads on the same frames")
+        smoke.check(f"{path}: sectioned Detections bitwise",
+                    rep["detections_equal"], "against detect's")
+        count_launches(smoke, None, path, rep["calls"],
+                       counts=rep["launches"])
+        secs = rep["sections"]
+        ratio = rep["sum_over_detect"]
+        smoke.check(f"{path}: sum of sections against detect",
+                    abs(ratio - 1.0) <= SECTIONS_SUM_TOL,
+                    f"{rep['sum_ms']:.3f} ms against {rep['detect_ms']:.3f} "
+                    f"back to back, ratio {ratio:.4f} (limit "
+                    f"{SECTIONS_SUM_TOL})")
+        smoke.check(f"{path}: every section positive, a floor share but "
+                    "post's", all(s["ms"] > 0 for s in secs.values())
+                    and secs["post"]["floor_ms"] is None
+                    and all(s["floor_share"] > 0 for n, s in secs.items()
+                            if n != "post"),
+                    ", ".join(f"{n} {s['ms']:.3f}" for n, s in secs.items()))
+        out[rep["model"]] = {k: rep[k] for k in (
+            "batch", "input", "sections", "sum_ms", "device_sum_ms",
+            "host_sum_ms", "detect_ms", "detect_windows_ms", "calls",
+            "launches")}
+    seconds = time.perf_counter() - t0
+    smoke.check("7s within its time", seconds < SECTIONS_SECONDS,
+                f"{seconds:.1f} s (limit {SECTIONS_SECONDS})")
+    out["seconds"] = seconds
+    print(json.dumps({"sections": out}))
+    return out
 
 
 def md_f32_losses(hp, batches, dev, mesh=None, fsdp=None):
@@ -3818,6 +3899,8 @@ def main() -> int:
     bench_lines = smoke.phase("7r bench: python -m uavdet_tpu_torch.bench per "
                               "cell in a fresh process", run_bench, smoke,
                               repo) or {}
+    smoke.phase("7s sections: roofline_table, section_probe and "
+                "cfg3_section_probe", run_sections, smoke, model, soem_model)
     phase8 = {}   # fps (or images/s) of each bench cell in phase 8
 
     def time_pair(name, kern, plain, lib, iters=ITERS, warmup=WARMUP,

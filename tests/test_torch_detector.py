@@ -159,6 +159,9 @@ def test_port_imports_no_jax():
             "import uavdet_tpu_torch.scripts.l2_ablate\n"
             "import uavdet_tpu_torch.scripts.block_ablate\n"
             "import uavdet_tpu_torch.scripts.kernel_probe\n"
+            "import uavdet_tpu_torch.scripts.roofline_table\n"
+            "import uavdet_tpu_torch.scripts.section_probe\n"
+            "import uavdet_tpu_torch.scripts.cfg3_section_probe\n"
             "import uavdet_tpu_torch.training\n"
             "import uavdet_tpu_torch.training.optim\n"
             "import uavdet_tpu_torch.training.steps\n"

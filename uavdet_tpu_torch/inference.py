@@ -346,24 +346,34 @@ class Detector(nn.Module):
                                  obj=gather_rows(o.obj, group, dim=2))
                 for o in outs]
 
-    def body(self, x) -> Detections:
-        """x: frames at the detector's grid, raw uint8 (stem kernels only)
-        or preprocessed."""
-        outs = self.heads(x)
+    def post(self, outs) -> Detections:
+        """The heads -> Detections: the global top-k and decode, then the
+        threshold and NMS (kernel C on the card)."""
         scales = [self.input_size // o.obj.shape[3] for o in outs]
         boxes, scores = decode_topk_global(outs, self.anchors, scales,
                                            self.pre_nms_topk)
         return select_detections(boxes, scores, self.score_threshold,
                                  self.nms_iou, self.max_det)
 
-    def forward(self, x: torch.Tensor, ir: torch.Tensor | None = None):
+    def body(self, x) -> Detections:
+        """x: frames at the detector's grid, raw uint8 (stem kernels only)
+        or preprocessed."""
+        return self.post(self.heads(x))
+
+    def prepare(self, x: torch.Tensor, ir: torch.Tensor | None = None):
+        """The frames ``forward`` takes -> what ``body`` takes: uint8 frames
+        at the detector's size stay as they are for the stem kernels, any
+        other frames are preprocessed."""
         size, dtype = self.input_size, self.compute_dtype
         if self.dual:
-            x = preprocess_dual(x, ir, size, dtype)
-        elif not (self.stem is not None and x.dtype == torch.uint8
-                  and tuple(x.shape[1:3]) == (size, size)):
-            x = preprocess(x, size, dtype)
-        return tuple(self.body(x))
+            return preprocess_dual(x, ir, size, dtype)
+        if self.stem is not None and x.dtype == torch.uint8 \
+                and tuple(x.shape[1:3]) == (size, size):
+            return x
+        return preprocess(x, size, dtype)
+
+    def forward(self, x: torch.Tensor, ir: torch.Tensor | None = None):
+        return tuple(self.body(self.prepare(x, ir)))
 
 
 def _on_rows(detect, model, mesh):

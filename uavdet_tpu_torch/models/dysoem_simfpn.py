@@ -290,20 +290,39 @@ class DySOEM_SimFPN(nn.Module):
     def dtype(self) -> torch.dtype:
         return next(self.parameters()).dtype
 
+    def front(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, H, W, 3) NHWC frames -> the input stem's output, NHWC."""
+        x = x.to(self.dtype).permute(0, 3, 1, 2)   # NCHW view of NHWC memory
+        return self.input_stem(x).permute(0, 2, 3, 1)
+
+    def soem_step(self, i: int, x: torch.Tensor, pooled=None, conv=dyconv):
+        """SOEM ``i`` on its input x (NHWC) and ``pooled`` (None for the
+        first) -> (its output, the next SOEM's ``pooled`` from this one's
+        ``emit_gap`` sums; None after the last)."""
+        soem = self.soems[i]
+        if i + 1 == self.n_soem:
+            return soem(x, self.attn_temperature, pooled=pooled,
+                        conv=conv), None
+        x, sums = soem(x, self.attn_temperature, pooled=pooled,
+                       emit_gap=True, conv=conv)
+        group = soem.sp_group
+        n_sp = 1 if group is None else torch.distributed.get_world_size(group)
+        return x, pooled_from_sums(x, sums, n_sp)
+
+    def neck_head(self, feats) -> list:
+        """The SOEMs' outputs (NHWC), highest resolution first -> one
+        DetectionResults per head."""
+        return self.yolo_head(self.neck([f.permute(0, 3, 1, 2)
+                                         for f in feats]))
+
     def forward(self, x: torch.Tensor, conv=dyconv):
         """x: (B, H, W, 3) NHWC frames in [0, 1], H and W multiples of 8.
-        -> one DetectionResults per head. ``conv``: see DynamicSOEM."""
-        x = x.to(self.dtype).permute(0, 3, 1, 2)   # NCHW view of NHWC memory
-        x = self.input_stem(x).permute(0, 2, 3, 1)
-        feats, pooled = [], None
-        soems = self.soems
-        group = soems[0].sp_group if soems else None
-        n_sp = 1 if group is None else torch.distributed.get_world_size(group)
-        for i, soem in enumerate(soems):
-            emit = i + 1 < len(soems)
-            res = soem(x, self.attn_temperature, pooled=pooled, emit_gap=emit,
-                       conv=conv)
-            x, sums = res if emit else (res, None)
-            pooled = pooled_from_sums(x, sums, n_sp) if emit else None
-            feats.append(x.permute(0, 3, 1, 2))
-        return self.yolo_head(self.neck(feats))
+        -> one DetectionResults per head. ``conv``: see DynamicSOEM. The
+        steps are ``front``, ``soem_step`` per SOEM and ``neck_head``, which
+        ``scripts/cfg3_section_probe.py`` times one by one."""
+        x, pooled = self.front(x), None
+        feats = []
+        for i in range(self.n_soem):
+            x, pooled = self.soem_step(i, x, pooled, conv)
+            feats.append(x)
+        return self.neck_head(feats)
