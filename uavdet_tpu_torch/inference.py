@@ -71,6 +71,7 @@ from .ops.decode import decode_predictions
 from .ops.nms import batched_nms, nms_alive
 from .ops.resize import bilinear_resize
 from .ops.stem import STEM_HALO, detector_stem_fast_path
+from .tracing import span
 from .utils.datatypes import DetectionResults, Detections
 
 
@@ -327,8 +328,12 @@ class Detector(nn.Module):
         rank's band of their rows, gathered over the group."""
         stem = self.stem
         if self.sp is None:
-            return stem.tail(stem.stem(x)) if stem is not None \
-                else self.model(x)
+            if stem is None:
+                return self.model(x)
+            with span("stem"):
+                a = stem.stem(x)
+            with span("tail"):
+                return stem.tail(a)
         from .parallel import gather_rows, model_stride, row_band, sp_rows
         group, index, n = self.sp
         height = x.shape[1]
@@ -337,9 +342,11 @@ class Detector(nn.Module):
             if stem is not None:
                 top = STEM_HALO[0] if band.start else 0
                 bottom = STEM_HALO[1] if band.stop < height else 0
-                outs = stem.tail(stem.rows(
-                    x[:, band.start - top:band.stop + bottom], top, bottom,
-                    group))
+                with span("stem"):
+                    a = stem.rows(x[:, band.start - top:band.stop + bottom],
+                                  top, bottom, group)
+                with span("tail"):
+                    outs = stem.tail(a)
             else:
                 outs = self.model(x[:, band.start:band.stop])
         return [DetectionResults(bbox=gather_rows(o.bbox, group, dim=2),
@@ -349,11 +356,12 @@ class Detector(nn.Module):
     def post(self, outs) -> Detections:
         """The heads -> Detections: the global top-k and decode, then the
         threshold and NMS (kernel C on the card)."""
-        scales = [self.input_size // o.obj.shape[3] for o in outs]
-        boxes, scores = decode_topk_global(outs, self.anchors, scales,
-                                           self.pre_nms_topk)
-        return select_detections(boxes, scores, self.score_threshold,
-                                 self.nms_iou, self.max_det)
+        with span("post"):
+            scales = [self.input_size // o.obj.shape[3] for o in outs]
+            boxes, scores = decode_topk_global(outs, self.anchors, scales,
+                                               self.pre_nms_topk)
+            return select_detections(boxes, scores, self.score_threshold,
+                                     self.nms_iou, self.max_det)
 
     def body(self, x) -> Detections:
         """x: frames at the detector's grid, raw uint8 (stem kernels only)
@@ -476,14 +484,16 @@ def make_detector(model, hparams, input_size: int,
 
     @torch.inference_mode()
     def detect(images) -> Detections:
-        device = next(model.parameters()).device
-        return Detections(*det(torch.as_tensor(images, device=device)))
+        with span("detect", frames=len(images)):
+            device = next(model.parameters()).device
+            return Detections(*det(torch.as_tensor(images, device=device)))
 
     @torch.inference_mode()
     def detect_dual(rgb, ir) -> Detections:
-        device = next(model.parameters()).device
-        return Detections(*det(torch.as_tensor(rgb, device=device),
-                               torch.as_tensor(ir, device=device)))
+        with span("detect", frames=len(rgb) + len(ir)):
+            device = next(model.parameters()).device
+            return Detections(*det(torch.as_tensor(rgb, device=device),
+                                   torch.as_tensor(ir, device=device)))
 
     fn = detect_dual if dual else detect
     return fn if mesh is None else _on_rows(fn, model, mesh)
@@ -524,12 +534,8 @@ def make_rtm_detector(model, input_size: int, det_scales: Sequence[int],
                          "JAX package serves RTMUAVDet only whole (bench.py's "
                          "cfg4); pass spatial=False and shard the batch")
 
-    @torch.inference_mode()
-    def detect(images) -> Detections:
-        param = next(model.parameters())
-        x = preprocess(torch.as_tensor(images, device=param.device),
-                       input_size, compute_dtype or param.dtype)
-        boxes, scores = rtm_candidates(model(x), input_size, det_scales)
+    def post(outs) -> Detections:
+        boxes, scores = rtm_candidates(outs, input_size, det_scales)
         k = min(pre_nms_topk, scores.shape[1])
         top_s, top_i = _topk_wide(scores, k)
         top_b = torch.gather(boxes, 1, top_i[..., None].expand(*top_i.shape,
@@ -543,5 +549,15 @@ def make_rtm_detector(model, input_size: int, det_scales: Sequence[int],
             boxes=torch.where(valid[..., None], out_b, 0.0),
             scores=torch.where(valid, torch.gather(top_s, 1, safe), 0.0),
             valid=valid)
+
+    @torch.inference_mode()
+    def detect(images) -> Detections:
+        with span("detect", frames=len(images)):
+            param = next(model.parameters())
+            x = preprocess(torch.as_tensor(images, device=param.device),
+                           input_size, compute_dtype or param.dtype)
+            outs = model(x)
+            with span("post"):
+                return post(outs)
 
     return detect if mesh is None else _on_rows(detect, model, mesh)

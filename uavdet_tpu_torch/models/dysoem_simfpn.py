@@ -30,6 +30,7 @@ from torch import nn
 from ..ops.dyconv import dyconv, mixed_bias, mixed_kernel, parity_sums
 from ..parallel.experts import mix_slices
 from ..parallel.spatial import halo_for_conv, sp_sum
+from ..tracing import span
 from .layers import BatchNorm2d, ConvModule, YOLOHead, global_mean
 
 
@@ -292,28 +293,33 @@ class DySOEM_SimFPN(nn.Module):
 
     def front(self, x: torch.Tensor) -> torch.Tensor:
         """(B, H, W, 3) NHWC frames -> the input stem's output, NHWC."""
-        x = x.to(self.dtype).permute(0, 3, 1, 2)   # NCHW view of NHWC memory
-        return self.input_stem(x).permute(0, 2, 3, 1)
+        with span("front"):
+            # NCHW view of NHWC memory
+            x = x.to(self.dtype).permute(0, 3, 1, 2)
+            return self.input_stem(x).permute(0, 2, 3, 1)
 
     def soem_step(self, i: int, x: torch.Tensor, pooled=None, conv=dyconv):
         """SOEM ``i`` on its input x (NHWC) and ``pooled`` (None for the
         first) -> (its output, the next SOEM's ``pooled`` from this one's
         ``emit_gap`` sums; None after the last)."""
         soem = self.soems[i]
-        if i + 1 == self.n_soem:
-            return soem(x, self.attn_temperature, pooled=pooled,
-                        conv=conv), None
-        x, sums = soem(x, self.attn_temperature, pooled=pooled,
-                       emit_gap=True, conv=conv)
-        group = soem.sp_group
-        n_sp = 1 if group is None else torch.distributed.get_world_size(group)
-        return x, pooled_from_sums(x, sums, n_sp)
+        with span("soem"):
+            if i + 1 == self.n_soem:
+                return soem(x, self.attn_temperature, pooled=pooled,
+                            conv=conv), None
+            x, sums = soem(x, self.attn_temperature, pooled=pooled,
+                           emit_gap=True, conv=conv)
+            group = soem.sp_group
+            n_sp = 1 if group is None \
+                else torch.distributed.get_world_size(group)
+            return x, pooled_from_sums(x, sums, n_sp)
 
     def neck_head(self, feats) -> list:
         """The SOEMs' outputs (NHWC), highest resolution first -> one
         DetectionResults per head."""
-        return self.yolo_head(self.neck([f.permute(0, 3, 1, 2)
-                                         for f in feats]))
+        with span("neck"):
+            return self.yolo_head(self.neck([f.permute(0, 3, 1, 2)
+                                             for f in feats]))
 
     def forward(self, x: torch.Tensor, conv=dyconv):
         """x: (B, H, W, 3) NHWC frames in [0, 1], H and W multiples of 8.
