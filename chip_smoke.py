@@ -81,6 +81,12 @@ nor PyYAML. The phases, in order:
   7e. DySOEM_SimFPN in float32 (batch 2, 256 px, eval mode): its SOEMs
      take the grouped conv (no kernel claims f32), against the same
      model's detections on the CPU;
+  6-7e, each: the 3 requests run eagerly, are captured as CUDA graphs and
+     are replayed (``make_detector`` on a card); a fourth request on fresh
+     frames, replayed, is held bitwise against the eager
+     ``inference.Detector`` and against the plain path, and its launches
+     of kernels A, B, C and D are read from the device trace, each under
+     a ``cudaGraphLaunch`` (``check_replay``);
   7f. train path 1: full-width DyYOLO at cfg6's shape (640 px, batch 8,
      grad_batches 2, bf16 autocast over float32 parameters, SGD with
      momentum 0.78 and lr 1e-4 from conf/model/dy-yolo.yaml), seeded
@@ -674,6 +680,70 @@ def check_requests(smoke, results, batch: int) -> None:
                     and finite and zero and bool((n_valid > 0).all()),
                     f"shapes {shapes} finite {finite} invalid-zero "
                     f"{zero} valid per image {n_valid.tolist()}")
+
+
+# each path kernel's name in the device trace (NMS_LARGE, counted as nms,
+# launches nms_mask_kernel and then nms_walk_kernel)
+KERNEL_SYMBOLS = {"stem_l1": ("stem_l1_kernel",),
+                  "stem_l2": ("stem_l2_kernel",),
+                  "nms": ("nms_kernel", "nms_mask_kernel"),
+                  "dyconv": ("dyconv_kernel",)}
+
+
+def check_replay(smoke, path: str, detect, twin, *frames):
+    """One more call of ``detect``, on fresh ``frames`` of a signature it
+    already replays as CUDA graphs, under ``tracing.collect`` and the
+    profiler. Checks that the call replayed its graphs; that its answer is
+    bitwise the eager ``twin``'s (``inference.Detector`` over the same
+    model, same options); and that the device trace holds the launches of
+    kernels A, B, C and D that EXPECTED_LAUNCHES gives for ``path``, each
+    from a graph's launch (``cudaGraphLaunch``) and none outside one.
+    -> the replayed Detections, for the caller's plain comparison."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from uavdet_tpu_torch import kernels, tracing
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with tracing.collect() as t, profile(activities=[
+            ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        got = detect(*frames)
+        torch.cuda.synchronize()
+    counted = {k: kernels.launch_counts()[k] for k in KERNEL_SYMBOLS}
+    graphs = {k: v["calls"] for k, v in t.counts.items()
+              if k.startswith("graph_")}
+    smoke.check(f"replay {path}: graphs replayed",
+                graphs == {"graph_replay": 1}, f"counters {graphs}")
+    with torch.inference_mode():
+        want = type(got)(*twin(*frames))
+    equal = all(torch.equal(a, b) for a, b in zip(got, want))
+    smoke.check(f"replay {path}: bitwise the eager Detector", equal,
+                f"valid per image {got.valid.sum(1).tolist()} vs "
+                f"{want.valid.sum(1).tolist()}")
+    events = [e for e in prof.profiler.kineto_results.events()
+              if e.end_ns() > e.start_ns()]
+    runtime = {e.correlation_id(): e.name() for e in events
+               if e.device_type() != DeviceType.CUDA
+               and e.name().startswith("cu")}
+    graphed = dict.fromkeys(KERNEL_SYMBOLS, 0)
+    eager = dict.fromkeys(KERNEL_SYMBOLS, 0)
+    for e in events:
+        if e.device_type() != DeviceType.CUDA:
+            continue
+        for k, names in KERNEL_SYMBOLS.items():
+            if any(n in e.name() for n in names):
+                launch = runtime.get(e.correlation_id(), "")
+                (graphed if launch.startswith("cudaGraphLaunch")
+                 else eager)[k] += 1
+    want_n = {k: EXPECTED_LAUNCHES[path].get(k, 0) for k in KERNEL_SYMBOLS}
+    smoke.check(f"replay {path}: kernel launches in the device trace",
+                graphed == want_n and not any(eager.values()),
+                f"under cudaGraphLaunch {graphed}, outside a graph {eager}, "
+                f"expected {want_n}")
+    smoke.check(f"replay {path}: launch_counts as the trace", counted ==
+                graphed, f"{counted}")
+    return got
 
 
 def compare_heads(smoke, outs_k, outs_p) -> None:
@@ -1284,7 +1354,9 @@ def run_sections(smoke, model, soem_model) -> dict:
         smoke.check(f"{path}: sectioned heads bitwise", rep["heads_equal"],
                     "against Detector.heads on the same frames")
         smoke.check(f"{path}: sectioned Detections bitwise",
-                    rep["detections_equal"], "against detect's")
+                    rep["detections_equal"],
+                    "against make_detector's detect at its third call "
+                    "(replayed as CUDA graphs)")
         count_launches(smoke, None, path, rep["calls"],
                        counts=rep["launches"])
         secs = rep["sections"]
@@ -2525,7 +2597,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
 
     from uavdet_tpu_torch import kernels
-    from uavdet_tpu_torch.inference import (decode_topk_global,
+    from uavdet_tpu_torch.inference import (Detector, decode_topk_global,
                                             make_detector, preprocess,
                                             preprocess_dual,
                                             select_detections)
@@ -2963,6 +3035,11 @@ def main() -> int:
         check_requests(smoke, results, BATCH)
         inputs["dyyolo"] = requests[0]
         compare_with_plain_stem(requests[0], results[0])
+        # a fourth call, on fresh frames: replayed as CUDA graphs
+        fresh = torch.randint(0, 256, (BATCH, SIZE, SIZE, 3),
+                              dtype=torch.uint8, device=dev, generator=gen)
+        compare_with_plain_stem(fresh, check_replay(
+            smoke, "DyYOLO", detect, Detector(model, DYYOLO, SIZE), fresh))
 
     def compare_with_plain_stem(x, result):
         """DyYOLO on the frames x (raw uint8 at the detector's size, or
@@ -3004,16 +3081,31 @@ def main() -> int:
         # place of the kernels (the f32 copies of the plain dyconv bound
         # how many frames fit)
         n = SOEM_PLAIN_FRAMES
-        x = preprocess(requests[0][:n], SOEM_SIZE)
+        plain = plain_soem(requests[0][:n])
+        compare_detections(smoke, soem_detect(requests[0][:n]), plain)
+        # a fourth call, on fresh frames: replayed as CUDA graphs; its
+        # first frames against the plain versions
+        fresh = torch.randint(0, 256, shape, dtype=torch.uint8, device=dev,
+                              generator=gen)
+        got = check_replay(smoke, "DySOEM_SimFPN", soem_detect,
+                           Detector(soem_model, DYSOEM, SOEM_SIZE), fresh)
+        compare_detections(smoke, type(got)(*(t[:n] for t in got)),
+                           plain_soem(fresh[:n]),
+                           name="replayed detections vs plain path")
+
+    def plain_soem(frames):
+        """The Detections of ``frames`` with the plain versions in place
+        of the kernels; their heads checked against the kernels'."""
+        x = preprocess(frames, SOEM_SIZE)
         outs_k = soem_model(x)
         outs_p = soem_model(x, conv=dyconv_plain)
-        print(f"plain versions on the first {n} of {SOEM_BATCH} frames")
+        print(f"plain versions on the first {len(frames)} of {SOEM_BATCH} "
+              f"frames")
         compare_heads(smoke, outs_k, outs_p)
         scales = [SOEM_SIZE // o.obj.shape[2] for o in outs_p]
-        plain = select_detections(
+        return select_detections(
             *decode_topk_global(outs_p, DYSOEM.anchors, scales, 512), 0.001,
             0.5, 300, alive_fn=nms_alive_plain)
-        compare_detections(smoke, soem_detect(requests[0][:n]), plain)
 
     smoke.phase("7 main path 2: DySOEM_SimFPN", main_path_soem)
 
@@ -3038,13 +3130,20 @@ def main() -> int:
         torch.cuda.synchronize()
         count_launches(smoke, kernels, "baseline", REQUESTS)
         check_requests(smoke, results, 1)
-        # the plain path: the same eager model, the plain NMS
-        outs = base_model(preprocess(requests[0], SIZE))
+        compare_detections(smoke, results[0], plain_baseline(requests[0]))
+        fresh = uint8_frames(1, (SIZE, SIZE))   # replayed as CUDA graphs
+        got = check_replay(smoke, "baseline", base_detect,
+                           Detector(base_model, BASELINE, SIZE), fresh)
+        compare_detections(smoke, got, plain_baseline(fresh),
+                           name="replayed detections vs plain path")
+
+    def plain_baseline(frames):
+        """The plain path: the same eager model, the plain NMS."""
+        outs = base_model(preprocess(frames, SIZE))
         scales = [SIZE // o.obj.shape[2] for o in outs]
-        plain = select_detections(
+        return select_detections(
             *decode_topk_global(outs, BASELINE.anchors, scales, 512), 0.001,
             0.5, 300, alive_fn=nms_alive_plain)
-        compare_detections(smoke, results[0], plain)
 
     @torch.inference_mode()
     def main_path_dual():
@@ -3066,6 +3165,11 @@ def main() -> int:
                     f"{float(x.max()):.3f}]")
         inputs["dual"] = requests[0]
         compare_with_plain_stem(x, results[0])
+        fresh = (uint8_frames(DUAL_BATCH, RGB_HW),   # replayed as graphs
+                 uint8_frames(DUAL_BATCH, IR_HW))
+        got = check_replay(smoke, "DyYOLO dual", dual_detect,
+                           Detector(model, DYYOLO, SIZE, dual=True), *fresh)
+        compare_with_plain_stem(preprocess_dual(*fresh, SIZE), got)
 
     smoke.phase("7b main path 3: BaselineModel", main_path_baseline)
     smoke.phase("7c main path 4: DyYOLO dual-stream", main_path_dual)
@@ -3085,15 +3189,23 @@ def main() -> int:
         torch.cuda.synchronize()
         count_launches(smoke, kernels, "DyYOLO pre_nms_topk 4096", REQUESTS)
         check_requests(smoke, results, BATCH)
+        compare_detections(smoke, results[0], plain_topk(requests[0]))
+        fresh = uint8_frames(BATCH, (SIZE, SIZE))   # replayed as graphs
+        got = check_replay(smoke, "DyYOLO pre_nms_topk 4096", topk_detect,
+                           Detector(model, DYYOLO, SIZE, pre_nms_topk=topk),
+                           fresh)
+        compare_detections(smoke, got, plain_topk(fresh),
+                           name="replayed detections vs plain path")
+
+    def plain_topk(frames):
         fast = detector_stem_fast_path(model)
-        outs = fast.tail(fast.stem(requests[0]))
+        outs = fast.tail(fast.stem(frames))
         scales = [SIZE // o.obj.shape[2] for o in outs]
         boxes, scores = decode_topk_global(outs, anchors, scales, topk)
         smoke.check("pre_nms_topk candidates", boxes.shape[1] == topk,
                     f"{tuple(boxes.shape)}")
-        plain = select_detections(boxes, scores, 0.001, 0.5, 300,
-                                  alive_fn=nms_alive_plain)
-        compare_detections(smoke, results[0], plain)
+        return select_detections(boxes, scores, 0.001, 0.5, 300,
+                                 alive_fn=nms_alive_plain)
 
     t0 = time.perf_counter()
     f32_model = seeded_model("DySOEM_SimFPN", DYSOEM, SEED,
@@ -3117,11 +3229,22 @@ def main() -> int:
         torch.cuda.synchronize()
         count_launches(smoke, kernels, "DySOEM_SimFPN float32", REQUESTS)
         check_requests(smoke, results, F32_BATCH)
-        cpu = make_detector(f32_cpu, DYSOEM, F32_SIZE,
-                            compute_dtype=torch.float32)(requests[0].cpu())
-        cpu = type(cpu)(*(t.to(dev) for t in cpu))
-        compare_detections(smoke, results[0], cpu, F32_LOGIT_TOL,
+        on_cpu = make_detector(f32_cpu, DYSOEM, F32_SIZE,
+                               compute_dtype=torch.float32)
+
+        def cpu(frames):
+            d = on_cpu(frames.cpu())
+            return type(d)(*(t.to(dev) for t in d))
+        compare_detections(smoke, results[0], cpu(requests[0]),
+                           F32_LOGIT_TOL,
                            "float32 detections on the card vs the CPU")
+        fresh = uint8_frames(F32_BATCH, (F32_SIZE, F32_SIZE))
+        got = check_replay(smoke, "DySOEM_SimFPN float32", detect_f32,
+                           Detector(f32_model, DYSOEM, F32_SIZE,
+                                    compute_dtype=torch.float32), fresh)
+        compare_detections(smoke, got, cpu(fresh), F32_LOGIT_TOL,
+                           "replayed float32 detections on the card vs the "
+                           "CPU")
 
     smoke.phase("7d main path 5: DyYOLO, pre_nms_topk 4096", main_path_topk)
     smoke.phase("7e main path 6: DySOEM_SimFPN float32", main_path_soem_f32)

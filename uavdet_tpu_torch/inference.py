@@ -26,6 +26,20 @@ A model whose parameters live on a CUDA device runs the kernels; on the CPU
 the same code runs their plain PyTorch versions. ``Detector`` is the same
 program as one ``nn.Module`` holding the model, which ``export.py`` traces.
 
+On a card, ``make_detector``'s detect replays ``Detector``'s call as CUDA
+graphs, one set per input signature, so that the host no longer issues
+every launch of a call (``_Graphs``). It graphs only what ``graph_safe``
+finds safe from the call itself: a CUDA device, no mesh, the model in eval
+mode, no autocast, nothing compiling or exporting. The capture is cut at
+the spans of ``tracing``: one graph per section (``stem``, ``tail``,
+``front``, ``soem``, ``neck``, ``post``) and for ``detect``'s own work, in
+one memory pool, each replayed inside its section's span, so the
+profiler still gives each section its kernels. The frames are copied into
+the graphs' static buffers and the Detections copied out: a call's answer
+is never overwritten by a later call. ``kernels.launch_counts`` counts a
+replay's launches as the capture counted them. ``Detector.forward`` itself
+stays eager.
+
 ``decode_all_heads`` and ``decode_topk_heads`` (with ``_topk_wide``) are the
 JAX package's other two decodes, kept with its contracts; no detector path
 calls them (the detector keeps ``decode_topk_global``).
@@ -59,7 +73,10 @@ objectness (``_topk_wide``: the lower index first on ties, as
 the card.
 """
 
-from functools import lru_cache
+import gc
+import threading
+import warnings
+from collections import OrderedDict
 from typing import Sequence
 
 import numpy as np
@@ -67,12 +84,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from . import kernels
 from .ops.decode import decode_predictions
 from .ops.nms import batched_nms, nms_alive
 from .ops.resize import bilinear_resize
 from .ops.stem import STEM_HALO, detector_stem_fast_path
-from .tracing import span
+from .tracing import count, cut_at_spans, span
 from .utils.datatypes import DetectionResults, Detections
+from .utils.tables import cached_tables, kept_tables
 
 
 def preprocess(images: torch.Tensor, input_size: int,
@@ -94,7 +113,7 @@ def preprocess_dual(rgb: torch.Tensor, ir: torch.Tensor, input_size: int,
                       preprocess(ir, input_size, compute_dtype)], dim=0)
 
 
-@lru_cache(maxsize=16)
+@cached_tables(maxsize=16)
 def _head_tables(device: torch.device, heads: tuple, anchors: tuple,
                  scales: tuple) -> dict:
     """Per-head decode tables on ``device``, built once per detector shape:
@@ -440,6 +459,238 @@ def _check_full_weights(model) -> None:
                          "into a plain copy with parallel.copy_full_weights)")
 
 
+def graph_safe(device: torch.device, model, mesh=None) -> bool:
+    """Whether a call of ``make_detector``'s detect on frames on ``device``
+    may be replayed as CUDA graphs: on a CUDA device, with no ``mesh`` (the
+    sharded and spatial detects and their collectives stay eager), the
+    model in eval mode, autocast off, and nothing compiling, exporting,
+    tracing or capturing a graph around the call."""
+    return (device.type == "cuda" and mesh is None and not model.training
+            and not torch.is_autocast_enabled(device.type)
+            and not torch.compiler.is_compiling()
+            and not torch.jit.is_tracing()
+            and not torch.cuda.is_current_stream_capturing())
+
+
+_registrations = 0   # modules, parameters and buffers registered since
+#                      the first _Weights (nn.Module's global hooks)
+
+
+def _registered(module, name, value) -> None:
+    global _registrations
+    _registrations += 1
+
+
+class _Weights:
+    """The parameters and buffers of ``model``, whose storage a graph of
+    its call reads. ``moved()`` says whether any of them is another tensor,
+    or lies in another storage, than at the last call.
+
+    The module tree is walked once, and again only after a module,
+    parameter or buffer was registered anywhere (``setattr`` included,
+    seen by ``nn.Module``'s global registration hooks): a call compares
+    the kept tensors' data pointers, where a walk in Python took most of a
+    replayed call's host time. A storage moved in place (``.data =``,
+    ``to()``) shows in its pointer."""
+
+    _hooked = False
+
+    def __init__(self, model):
+        if not _Weights._hooked:
+            hooks = nn.modules.module
+            for register in (hooks.register_module_module_registration_hook,
+                             hooks.register_module_parameter_registration_hook,
+                             hooks.register_module_buffer_registration_hook):
+                register(_registered)
+            _Weights._hooked = True
+        self.model = model
+        self.walk()
+
+    def walk(self) -> None:
+        self.tensors, stack = [], [self.model]
+        while stack:
+            m = stack.pop()
+            self.tensors += [t for d in (m._parameters, m._buffers)
+                             for t in d.values() if t is not None]
+            stack += [c for c in m._modules.values() if c is not None]
+        self.ptrs = list(map(torch.Tensor.data_ptr, self.tensors))
+        self.walked = _registrations
+
+    def moved(self) -> bool:
+        if (self.walked == _registrations and
+                list(map(torch.Tensor.data_ptr, self.tensors)) == self.ptrs):
+            return False
+        ptrs = self.ptrs
+        self.walk()
+        return self.ptrs != ptrs
+
+
+_capture_streams = {}   # device -> the stream graphs are captured on
+
+
+def _capture_stream(device: torch.device) -> torch.cuda.Stream:
+    """One side stream per device for every capture: per-stream state that
+    cuBLAS makes at its first use on a stream (its workspace) is then made
+    once, by the warm-up before the first capture, outside any graph's
+    pool."""
+    if device not in _capture_streams:
+        _capture_streams[device] = torch.cuda.Stream(device)
+    return _capture_streams[device]
+
+
+class _GraphSet:
+    """One input signature's call as CUDA graphs: the static frames, the
+    segments cut at the spans ((span name or None for ``detect``'s own
+    work, its frames, graph), in the order the call ran them, sharing one
+    memory pool; the empty ones are not replayed), the static Detections,
+    each kernel's launches in one call, and the cached tables the capture
+    read (``utils.tables``: a graph reads them where they lay, so it keeps
+    them whatever their cache drops).
+
+    The capture's error mode is the thread's own: CUDA calls of other
+    threads (a data pipeline decoding ahead on its side stream) neither
+    fail nor spoil it."""
+
+    def __init__(self, fn, frames):
+        device = frames[0].device
+        stream = _capture_stream(device)
+        self.frames = [f.clone() for f in frames]
+        self.segments, self.graphs = [], []
+        pool, mode = torch.cuda.graph_pool_handle(), "thread_local"
+        stream.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(stream):
+            fn(*self.frames)   # warm-up on the capture stream
+            warm = kernels.launch_counts()
+            gc.collect()
+            graph = torch.cuda.CUDAGraph()
+            at = (None, None)
+
+            def boundary(name, frames):
+                nonlocal graph, at
+                self._end(graph, at)
+                graph, at = torch.cuda.CUDAGraph(), (name, frames)
+                graph.capture_begin(pool=pool, capture_error_mode=mode)
+
+            graph.capture_begin(pool=pool, capture_error_mode=mode)
+            try:
+                with cut_at_spans(boundary), kept_tables() as self.tables:
+                    self.out = fn(*self.frames)
+            except BaseException:
+                try:
+                    graph.capture_end()
+                except RuntimeError:
+                    pass
+                raise
+            self._end(graph, at)
+        torch.cuda.current_stream(device).wait_stream(stream)
+        done = kernels.launch_counts()
+        self.launches = {k: done[k] - warm[k] for k in done
+                         if done[k] != warm[k]}
+        # the capture launched nothing: the call counts the warm-up's
+        kernels.add_launches({k: -n for k, n in self.launches.items()})
+
+    def _end(self, graph, at) -> None:
+        """Ends ``graph``'s capture; a segment unless it is empty. Every
+        graph is kept all the same: each holds the shared pool, which the
+        next capture could not join once its holders were gone."""
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            graph.capture_end()
+        empty = False
+        for w in caught:
+            if "CUDA Graph is empty" in str(w.message):
+                empty = True
+            else:
+                warnings.warn_explicit(w.message, w.category, w.filename,
+                                       w.lineno)
+        self.graphs.append(graph)
+        if not empty:
+            self.segments.append((*at, graph))
+
+    def replay(self, frames, spans: bool = True) -> Detections:
+        """Copies ``frames`` in, replays the segments (each section's
+        inside its span) and returns a copy of the Detections."""
+        for static, f in zip(self.frames, frames):
+            static.copy_(f)
+        for name, n, graph in self.segments:
+            if name is None or not spans:
+                graph.replay()
+            else:
+                with span(name, n):
+                    graph.replay()
+        return Detections(*(t.clone() for t in self.out))
+
+
+class _Graphs:
+    """``make_detector``'s call, replayed as CUDA graphs where
+    ``graph_safe`` allows: one ``_GraphSet`` per input signature (the
+    frames' shapes, dtypes and device), captured at the signature's second
+    call (the first, eager, warms up caches, cuDNN's algorithms and the
+    kernels' library outside the graphs' pool), for at most ``KEEP``
+    signatures; other calls run eagerly. The graphs read the model's
+    weights where they lie: a change in place shows in the next replay,
+    and a parameter or buffer that moved (replaced, or a ``to()``;
+    ``_Weights``) drops every graph. Non-contiguous frames run eagerly (a
+    graph copies frames into contiguous buffers). A capture that fails
+    warns, runs the call eagerly and leaves its signature seen once: the
+    next call tries again. Each call counts ``graph_replay``,
+    ``graph_capture`` or ``graph_eager`` (``tracing.count``)."""
+
+    KEEP = 4   # signatures with graphs; the signatures seen once, as many
+
+    def __init__(self, fn, model, mesh):
+        self.fn, self.model, self.mesh = fn, model, mesh
+        self.weights = None   # a _Weights from the first graphed call on
+        self.sets = {}        # signature -> _GraphSet
+        self.seen = OrderedDict()   # signatures seen once, oldest first
+        self.lock = threading.Lock()
+
+    def __call__(self, *frames) -> Detections:
+        n = sum(len(f) for f in frames)
+        if graph_safe(frames[0].device, self.model, self.mesh) \
+                and all(f.is_contiguous() for f in frames):
+            with self.lock:
+                out = self._graphed(frames, n)
+            if out is not None:
+                return out
+        count("graph_eager", n)
+        return Detections(*self.fn(*frames))
+
+    def _graphed(self, frames, n) -> Detections | None:
+        """The call replayed, or captured and replayed; None: run it
+        eagerly."""
+        if self.weights is None:
+            self.weights = _Weights(self.model)
+        elif self.weights.moved():
+            if self.sets:
+                torch.cuda.synchronize(frames[0].device)
+            self.sets.clear()
+            self.seen.clear()
+        key = tuple((tuple(f.shape), f.dtype, f.device) for f in frames)
+        if key in self.sets:
+            g = self.sets[key]
+            count("graph_replay", n)
+            out = g.replay(frames)
+            kernels.add_launches(g.launches)
+            return out
+        if key not in self.seen or len(self.sets) >= self.KEEP:
+            self.seen[key] = None
+            self.seen.move_to_end(key)
+            while len(self.seen) > self.KEEP:
+                self.seen.popitem(last=False)
+            return None
+        try:
+            g = _GraphSet(self.fn, frames)
+        except RuntimeError as e:   # still seen once: the next call tries
+            warnings.warn(f"detect ran eagerly for frames {key}: their "
+                          f"capture as CUDA graphs failed ({e})")
+            return None
+        del self.seen[key]
+        self.sets[key] = g
+        count("graph_capture", n)
+        return g.replay(frames, spans=False)
+
+
 def make_detector(model, hparams, input_size: int,
                   score_threshold: float = 0.001, nms_iou: float = 0.5,
                   pre_nms_topk: int = 512, max_det: int = 300,
@@ -464,6 +715,11 @@ def make_detector(model, hparams, input_size: int,
     ``spatial``: each rank of the mesh's ``sp`` axis runs its band of the
     rows (see the module docstring); it needs a ``mesh`` with that axis,
     and ``input_size`` a multiple of sp x the model's largest stride.
+
+    On a card the call is replayed as CUDA graphs cut at its spans where
+    ``graph_safe`` allows (see ``_Graphs`` and the module docstring): the
+    same kernels in the same order, from the second call of a signature on.
+    Every call returns tensors of its own.
     """
     det = Detector(model, hparams, input_size, score_threshold, nms_iou,
                    pre_nms_topk, max_det, compute_dtype, dual)
@@ -481,19 +737,20 @@ def make_detector(model, hparams, input_size: int,
             det.sp = (sp_group(mesh), coordinate(mesh)[2], n)
     if mesh is not None:
         _check_full_weights(model)
+    graphs = _Graphs(det, model, mesh)
 
     @torch.inference_mode()
     def detect(images) -> Detections:
         with span("detect", frames=len(images)):
             device = next(model.parameters()).device
-            return Detections(*det(torch.as_tensor(images, device=device)))
+            return graphs(torch.as_tensor(images, device=device))
 
     @torch.inference_mode()
     def detect_dual(rgb, ir) -> Detections:
         with span("detect", frames=len(rgb) + len(ir)):
             device = next(model.parameters()).device
-            return Detections(*det(torch.as_tensor(rgb, device=device),
-                                   torch.as_tensor(ir, device=device)))
+            return graphs(torch.as_tensor(rgb, device=device),
+                          torch.as_tensor(ir, device=device))
 
     fn = detect_dual if dual else detect
     return fn if mesh is None else _on_rows(fn, model, mesh)

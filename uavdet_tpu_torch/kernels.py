@@ -170,6 +170,14 @@ def reset_launch_counts() -> None:
         k.launches = 0
 
 
+def add_launches(counts: dict) -> None:
+    """Adds ``counts`` ({name: launches}, as ``launch_counts`` gives them)
+    to the launch counts: a CUDA graph's replay launches the kernels its
+    capture counted, without calling their wrappers."""
+    for name, n in counts.items():
+        ALL[name].launches += n
+
+
 def check_device(t, what: str) -> None:
     """Raises for a tensor on neither a CUDA device nor the CPU: the kernels
     run on the card and their plain versions on the CPU, nothing else."""

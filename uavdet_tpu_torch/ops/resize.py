@@ -27,6 +27,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from ..utils.tables import cached_tables
+
 
 @lru_cache(maxsize=None)
 def resize_weights(n_in: int, n_out: int) -> np.ndarray:
@@ -45,14 +47,15 @@ def resize_weights(n_in: int, n_out: int) -> np.ndarray:
     return out
 
 
-@lru_cache(maxsize=32)
+@cached_tables(maxsize=32)
 def _weights_on(device: torch.device, dtype: torch.dtype, n_in: int,
                 n_out: int, weights=resize_weights) -> torch.Tensor:
     """The resize matrix ``weights(n_in, n_out)`` on ``device``, made once
     per shape: a copy from the host at every call would make the host wait
     for the card. Read-only. Made outside inference mode whatever the
     caller's mode: an inference tensor in the cache would break every later
-    call under autograd (a model served first, then trained)."""
+    call under autograd (a model served first, then trained). A CUDA
+    graph that reads it keeps it (``utils.tables``)."""
     with torch.inference_mode(False):
         return torch.tensor(weights(n_in, n_out), dtype=dtype, device=device)
 

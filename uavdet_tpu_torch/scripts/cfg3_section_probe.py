@@ -21,14 +21,17 @@ One sectioned call runs the model's own steps in ``forward``'s order
 (``front``, ``soem_step`` per SOEM, ``neck_head``), then
 ``inference.Detector.post``, and is timed as ``section_probe.py`` times
 DyYOLO's: a CUDA event after each section, ``--iters`` calls back to back,
-medians, the plain ``detect`` back to back beside them, the heads and
-Detections held bitwise against ``Detector.heads`` and ``detect``, the
-launches counted. The floors are ``roofline_table.soem_section_floors``
-(post has none). On the card unless ``--device cpu`` is given.
+medians, the whole call back to back beside them (eager, as the
+sectioned one), the heads and Detections held bitwise against
+``Detector.heads`` and the served detect's replayed call, the launches
+counted. The floors are ``roofline_table.soem_section_floors`` (post has
+none). On the card unless ``--device cpu`` is given.
 
 Usage: python3 -m uavdet_tpu_torch.scripts.cfg3_section_probe [--batch 32]
        [--input 1280] [--iters 10] [--warmup 3] [--seed 0] [--device cpu]
 """
+
+import torch
 
 from .roofline_table import soem_section_floors
 from .section_probe import (device_of, measure, no_mark, parse_args,
@@ -72,13 +75,14 @@ def main(argv=None, model=None) -> dict:
         model = seeded_model("DySOEM_SimFPN", DYSOEM, args.seed, device)
     kw = dict(compute_dtype=dtype)
     det = Detector(model, DYSOEM, args.input, **kw)
-    detect = make_detector(model, DYSOEM, args.input, **kw)
+    detect = torch.inference_mode()(det)   # the whole call, eager
+    served = make_detector(model, DYSOEM, args.input, **kw)
     names, run = sectioned_dysoem(det)
     frames = uint8_frames(args.seed, (args.batch, args.input, args.input, 3),
                           device)
     floors = soem_section_floors(args.batch, args.input)
-    report = measure(det, detect, names, run, frames, floors, args.iters,
-                     args.warmup)
+    report = measure(det, detect, served, names, run, frames, floors,
+                     args.iters, args.warmup)
     report.update(model="DySOEM_SimFPN", batch=args.batch, input=args.input)
     print_report(f"DySOEM_SimFPN batch {args.batch} at {args.input} px, "
                  f"{dtype}", report, device)

@@ -22,12 +22,16 @@ programs and took differences, this one measures in context in one program:
 the call records a CUDA event after each section, ``--iters`` calls are
 issued back to back with no host sync inside the window, the events are
 read after one synchronize, and each section's reading is its median. The
-plain ``detect`` is timed back to back the same way
-(``utils.timing.time_total``); the sections' sum should read what it reads.
+whole call, eager as the sectioned one (``inference.Detector``; the
+served ``make_detector`` detect replays it as CUDA graphs on the card,
+without the host's gaps between launches), is timed back to back the same
+way (``utils.timing.time_total``); the sections' sum should read what it
+reads.
 
 Before the timing one sectioned call is held against ``Detector.heads``
-and ``detect`` on the same frames: the heads and the Detections must be
-bitwise equal. The kernels' launches during the sectioned calls are
+and the served detect (``make_detector``'s, at its third call: replayed as
+CUDA graphs on the card) on the same frames: the heads and the Detections
+must be bitwise equal. The kernels' launches during the sectioned calls are
 counted (``kernels.launch_counts``). Each section's floor comes from
 ``roofline_table.section_floors`` (post has none).
 
@@ -202,10 +206,11 @@ def _same_detections(a, b) -> bool:
 
 
 @torch.inference_mode()
-def measure(det, detect, names, run, frames, floors: dict, iters: int,
-            warmup: int) -> dict:
-    """The probe. One sectioned call against ``det.heads`` and ``detect``
-    on the same frames (bitwise); the host's issue time per section over
+def measure(det, detect, served, names, run, frames, floors: dict,
+            iters: int, warmup: int) -> dict:
+    """The probe. One sectioned call against ``det.heads`` and the third
+    call of ``served`` (eager, captured, replayed) on the same frames
+    (bitwise); the host's issue time per section over
     the warm-up calls and, on the card, each section's device time alone
     (``device_readings``), the launches of these sectioned calls counted;
     then ``detect`` timed back to back (``utils.timing.time_total``), the
@@ -218,9 +223,11 @@ def measure(det, detect, names, run, frames, floors: dict, iters: int,
     from ..utils.timing import time_total
     device = frames.device
     heads, dets = run(frames)
+    for _ in range(3):
+        replayed = served(frames)
     report = {
         "heads_equal": _same_heads(heads, det.heads(det.prepare(frames))),
-        "detections_equal": _same_detections(dets, detect(frames))}
+        "detections_equal": _same_detections(dets, replayed)}
     calls = max(warmup, 1)
     kernels.reset_launch_counts()
     readings = {"host_ms": host_readings(run, frames, names, calls, device),
@@ -328,13 +335,14 @@ def main(argv=None, model=None) -> dict:
         model = seeded_model("DyYOLO", DYYOLO, args.seed, device)
     kw = dict(compute_dtype=dtype)
     det = Detector(model, DYYOLO, args.input, **kw)
-    detect = make_detector(model, DYYOLO, args.input, **kw)
+    detect = torch.inference_mode()(det)   # the whole call, eager
+    served = make_detector(model, DYYOLO, args.input, **kw)
     names, run = sectioned_dyyolo(det)
     frames = uint8_frames(args.seed, (args.batch, args.input, args.input, 3),
                           device)
     floors = section_floors(args.batch, args.input, model.tokens)
-    report = measure(det, detect, names, run, frames, floors, args.iters,
-                     args.warmup)
+    report = measure(det, detect, served, names, run, frames, floors,
+                     args.iters, args.warmup)
     report.update(model="DyYOLO", batch=args.batch, input=args.input)
     print_report(f"DyYOLO batch {args.batch} at {args.input} px, {dtype}",
                  report, device)
