@@ -9,8 +9,9 @@ candidates (every anchor of every cell of every head, decoded):
              detection's is, ``reference.detect.near``, the one that
              explains it best: the least of the larger of this gap and the
              box error); for each of the reference's first
-             ``pre_nms_topk`` candidates above the score threshold that is
-             no detection's candidate, the least error that explains its
+             ``pre_nms_topk`` candidates above the score threshold (all of
+             them at a threshold of 0: a detector with none) that is no
+             detection's candidate, the least error that explains its
              absence: that it fell below the k-th (its logit - the
              reference's k-th), below the last of ``max_det`` kept (its
              logit - the lowest detection's, where all slots are full), or
@@ -108,7 +109,8 @@ def detection_numbers(prog, cand: dict, det: dict) -> dict:
                        device=pair.device)[None]
     overlap = float(torch.where(pair, iou, 0.0).amax()) if pair.numel() \
         else 0.0
-    thr = math.log(det["score_threshold"] / (1 - det["score_threshold"]))
+    st = det["score_threshold"]
+    thr = math.log(st / (1 - st)) if st > 0 else -math.inf
     own = box_gap = cover = 0.0
     for i in range(boxes.shape[0]):
         v = valid[i]

@@ -90,6 +90,19 @@ class Head(nn.Module):
                     conv_bbox=nn.Conv2d(c, 4 * n_anchors, 1)))))
             for c in channels)
 
+    def weight_spec(self) -> dict:
+        """The heads' draws for ``weights.seeded_state``: convs N(0, 0.1)
+        and an objectness bias of -log(99), a prior of 0.01, so that the
+        scores start in a trained detector's range."""
+        spec = {}
+        for h in range(len(self.detection_head)):
+            obj = f"detection_head.{h}.obj.conv_obj."
+            spec[obj + "weight"] = ("normal", 0.1)
+            spec[obj + "bias"] = ("const", -math.log(99.0))
+            spec[f"detection_head.{h}.bbox.conv_bbox.weight"] = ("normal",
+                                                                  0.1)
+        return spec
+
     def forward(self, maps, quant=None):
         outs = []
         a = self.n_anchors

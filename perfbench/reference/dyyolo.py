@@ -61,6 +61,16 @@ class Residual(nn.Module):
             for _ in range(repeats))
         self.use_residual = use_residual
 
+    def weight_spec(self) -> dict:
+        """The draw for ``weights.seeded_state`` of the scale of each
+        branch's last BatchNorm, where the branch adds to its skip:
+        U(0.1, 0.3), so that the sum stays near the skip through the deep
+        stack."""
+        if not self.use_residual:
+            return {}
+        return {f"layers.{r}.1.bn.weight": ("uniform", 0.1, 0.3)
+                for r in range(len(self.layers))}
+
     def forward(self, x, quant=None):
         for pair in self.layers:
             y = pair[1](pair[0](x, quant), quant)

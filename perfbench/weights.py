@@ -1,21 +1,30 @@
 """Seeded weights for a configuration, made on the device.
 
 The distributions are those of a detector at initialisation with its
-activations and scores in a trained detector's range:
+activations and scores in a trained detector's range. Every layer of these
+classes gets its draws here:
 
   convs, linear layers and expert kernels   He-normal over the fan-in,
                                             biases 0
   BatchNorm                                 scale U(0.8, 1.2), shift and
                                             running mean N(0, 0.05), running
                                             variance U(0.8, 1.2)
-  the last BatchNorm of a residual branch   scale U(0.1, 0.3)
-  head convs                                N(0, 0.1), objectness bias
-                                            -log(99) (a prior of 0.01)
+  GroupNorm                                 scale U(0.8, 1.2), shift
+                                            N(0, 0.05)
+
+A module of a reference declares the draws of its own layers, and any that
+differ from these, by a ``weight_spec()`` method: {state key relative to
+the module: spec}, specs ``("normal", std)``, ``("uniform", lo, hi)`` or
+``("const", v)``. Its entries override the rules above. So
+``reference.common.Head`` draws its convs from N(0, 0.1) with the
+objectness bias -log(99) (a prior of 0.01), and ``reference.dyyolo
+.Residual`` the scale of each residual branch's last BatchNorm from
+U(0.1, 0.3). A tensor of the state that no rule covers is a ``ValueError``.
 
 All normal draws come from one ``torch.randn`` and all uniform draws from
 one ``torch.rand`` of a generator on the device seeded with ``seed``; the
-leaves are slices of them. The same dictionary is loaded into the program
-and into the reference.
+leaves are slices of them, in the order of the state dict. The same
+dictionary is loaded into the program and into the reference.
 """
 
 import math
@@ -23,12 +32,12 @@ import math
 import torch
 from torch import nn
 
-from .reference.common import Head, he_std
+from .reference.common import he_std
 
 
 def _specs(model: nn.Module) -> dict:
     """{state key: ("normal", std) | ("uniform", lo, hi) | ("const", v)}
-    for every floating tensor of ``model``'s state."""
+    for every tensor of ``model``'s state but BatchNorm's step counts."""
     spec = {}
     for name, m in model.named_modules():
         pre = f"{name}." if name else ""
@@ -44,6 +53,9 @@ def _specs(model: nn.Module) -> dict:
             spec[pre + "bias"] = ("normal", 0.05)
             spec[pre + "running_mean"] = ("normal", 0.05)
             spec[pre + "running_var"] = ("uniform", 0.8, 1.2)
+        elif isinstance(m, nn.GroupNorm) and m.affine:
+            spec[pre + "weight"] = ("uniform", 0.8, 1.2)
+            spec[pre + "bias"] = ("normal", 0.05)
         for pname, p in m.named_parameters(recurse=False):
             if pname == "weights":          # DyConv experts (E, O, I, k, k)
                 spec[pre + pname] = ("normal", he_std(p[0, 0].numel()))
@@ -51,18 +63,22 @@ def _specs(model: nn.Module) -> dict:
                 spec[pre + pname] = ("normal", he_std(p[..., 0].numel()))
             elif pname == "bias" and pre + pname not in spec:
                 spec[pre + pname] = ("const", 0.0)
+    state = model.state_dict()
     for name, m in model.named_modules():
+        if not hasattr(m, "weight_spec"):
+            continue
         pre = f"{name}." if name else ""
-        if getattr(m, "use_residual", False):
-            for r in range(len(m.layers)):
-                spec[f"{pre}layers.{r}.1.bn.weight"] = ("uniform", 0.1, 0.3)
-        if isinstance(m, Head):
-            for h in range(len(m.detection_head)):
-                obj = f"{pre}detection_head.{h}.obj.conv_obj."
-                box = f"{pre}detection_head.{h}.bbox.conv_bbox."
-                spec[obj + "weight"] = ("normal", 0.1)
-                spec[obj + "bias"] = ("const", -math.log(99.0))
-                spec[box + "weight"] = ("normal", 0.1)
+        for key, s in m.weight_spec().items():
+            if pre + key not in state:
+                raise ValueError(f"{type(m).__name__}.weight_spec names "
+                                 f"{pre + key!r}, which is not in the state")
+            spec[pre + key] = s
+    for key in state:
+        if key not in spec and not key.endswith("num_batches_tracked"):
+            owner = model.get_submodule(key.rpartition(".")[0])
+            raise ValueError(f"no draw for {key!r}, a tensor of "
+                             f"{type(owner).__name__}: declare it in that "
+                             "module's weight_spec()")
     return spec
 
 
