@@ -27,7 +27,11 @@ called directly: the same program, never graphed. Each test checks:
   them and their memory was written over;
 - captured and replayed while a data pipeline decodes ahead on its side
   stream (evaluate's loop), every answer equals its twin;
-- a capture that fails leaves the call eager, and the next call captures.
+- a capture that fails leaves the call eager, and the next call captures;
+- ``make_rtm_detector`` (RTMUAVDet at 8 x 640) through the same graphs:
+  eager, then captured, then replayed, each bitwise the eager call; a
+  second signature captures a set of its own; a moved weight drops the
+  graphs; its spans hold the replayed device time.
 """
 
 import gc
@@ -37,9 +41,11 @@ import pytest
 import torch
 
 from uavdet_tpu_torch import kernels, tracing
-from uavdet_tpu_torch.inference import Detector, make_detector
+from uavdet_tpu_torch.inference import (Detector, make_detector,
+                                        make_rtm_detector)
 from uavdet_tpu_torch.models import DYSOEM, DYYOLO
-from uavdet_tpu_torch.utils.seeding import seeded_model
+from uavdet_tpu_torch.models.rtm_uav_det import rtm_det_scales
+from uavdet_tpu_torch.utils.seeding import seeded_model, seeded_rtm_model
 
 pytestmark = pytest.mark.card
 SIZE, SOEM_SIZE = 640, 1280
@@ -60,6 +66,11 @@ def dyyolo(card):
 @pytest.fixture(scope="module")
 def dysoem(card):
     return seeded_model("DySOEM_SimFPN", DYSOEM, 0, device=card)
+
+
+@pytest.fixture(scope="module")
+def rtm(card):
+    return seeded_rtm_model(0, SIZE, device=card)
 
 
 def _frames(card, seed, shape):
@@ -166,17 +177,21 @@ def test_launch_counts_per_call_are_eager_s(card, dyyolo, dysoem):
         assert kernels.launch_counts() == eager
 
 
-@pytest.mark.parametrize("name", ["dyyolo", "dysoem"])
-def test_spans_hold_all_the_replayed_device_time(card, dyyolo, dysoem,
+@pytest.mark.parametrize("name", ["dyyolo", "dysoem", "rtm"])
+def test_spans_hold_all_the_replayed_device_time(card, dyyolo, dysoem, rtm,
                                                  name):
     from torch.profiler import ProfilerActivity, profile
 
     from perfbench import spans as bench_spans
     from perfbench import trace
 
-    model, hp, size = ((dyyolo, DYYOLO, SIZE) if name == "dyyolo"
-                       else (dysoem, DYSOEM, SOEM_SIZE))
-    detect = make_detector(model, hp, size)
+    if name == "rtm":
+        size = SIZE
+        detect = make_rtm_detector(rtm, size, rtm_det_scales(size))
+    else:
+        model, hp, size = ((dyyolo, DYYOLO, SIZE) if name == "dyyolo"
+                           else (dysoem, DYSOEM, SOEM_SIZE))
+        detect = make_detector(model, hp, size)
     x = _frames(card, 40, (2, size, size, 3))
     for _ in range(3):
         detect(x)
@@ -192,7 +207,9 @@ def test_spans_hold_all_the_replayed_device_time(card, dyyolo, dysoem,
     by_span = bench_spans.attribute(host, device)
     assert None not in by_span
     sections = {"dyyolo": {"stem", "tail", "post"},
-                "dysoem": {"front", "soem", "neck", "post"}}[name]
+                "dysoem": {"front", "soem", "neck", "post"},
+                "rtm": {"stem", "csp", "fuse", "norm", "mdy", "mlp", "head",
+                        "post"}}[name]
     assert sections <= set(by_span) <= sections | {"detect"}
     busy = trace.union_us(device)
     total = sum(trace.union_us(v) for v in by_span.values())
@@ -298,3 +315,38 @@ def test_a_failed_capture_is_tried_again(card, dyyolo, monkeypatch):
     assert _counts(detect, x) == {"graph_capture": 1}
     assert _counts(detect, x) == {"graph_replay": 1}
     assert len(tries) == 2 and _equal(detect(x), want)
+
+
+def test_rtm_replay_is_bitwise_its_eager_call(card, rtm):
+    """``make_rtm_detector`` on the same ``_Graphs``: a signature's first
+    call eager, its second captured, then replayed, each answer bitwise the
+    eager one; a second signature captures a set of its own while the first
+    still replays; a parameter replaced (same values, another storage)
+    drops the graphs, and the call after captures again."""
+    detect = make_rtm_detector(rtm, SIZE, rtm_det_scales(SIZE))
+    x = _frames(card, 80, (8, SIZE, SIZE, 3))
+    y = _frames(card, 81, (2, SIZE, SIZE, 3))
+
+    def call(frames):
+        with tracing.collect() as t:
+            out = detect(frames)
+        return out, {k: v["calls"] for k, v in t.counts.items()
+                     if k.startswith("graph_")}
+
+    want, counts = call(x)
+    assert counts == {"graph_eager": 1} and want.valid.any()
+    for mode in ("graph_capture", "graph_replay", "graph_replay"):
+        got, counts = call(x)
+        assert counts == {mode: 1} and _equal(got, want)
+    want_y, counts = call(y)
+    assert counts == {"graph_eager": 1}
+    for mode in ("graph_capture", "graph_replay"):
+        got, counts = call(y)
+        assert counts == {mode: 1} and _equal(got, want_y)
+    got, counts = call(x)
+    assert counts == {"graph_replay": 1} and _equal(got, want)
+    bn = rtm.stem.bn
+    bn.bias = torch.nn.Parameter(bn.bias.detach().clone())
+    for mode in ("graph_eager", "graph_capture", "graph_replay"):
+        got, counts = call(x)
+        assert counts == {mode: 1} and _equal(got, want)

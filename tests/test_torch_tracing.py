@@ -1,7 +1,8 @@
 """The detector's spans (``uavdet_tpu_torch/tracing.py``) on the CPU at
-64 px: off by default and then free of records, the span trees of a DyYOLO
-and a DySOEM_SimFPN call, request ids, the profiler's ``uavdet.*`` ranges,
-and the same Detections and the same exported program with tracing on.
+64 px: off by default and then free of records, the span trees of a
+DyYOLO, a DySOEM_SimFPN and an RTMUAVDet call, request ids, the profiler's
+``uavdet.*`` ranges, and the same Detections and the same exported program
+with tracing on.
 Then what the CUDA graphs of ``make_detector`` rest on that the CPU can
 show: a CPU call stays eager and counts so, the rule that decides where a
 call may be graphed, the weights' pointers, the cached tables a capture
@@ -32,7 +33,9 @@ ANCHORS = [[[40, 30], [60, 46], [54, 36]], [[18, 14], [24, 18], [30, 12]],
            [[10, 8], [12, 9], [14, 6]]]
 SECTIONS = {"dyyolo": ["stem", "tail", "post"],
             "dysoem": ["front", "soem", "soem", "soem", "neck", "post"],
-            "rtm": ["post"]}
+            "rtm": ["stem", "csp", "csp", "fuse", "norm", "mdy", "norm",
+                    "mlp", "fuse", "norm", "mdy", "norm", "mlp", "head",
+                    "post"]}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -126,7 +129,7 @@ def test_the_profiler_shows_the_spans_as_ranges(detectors):
         "uavdet." + n for n in ["detect"] + SECTIONS["dysoem"])
 
 
-@pytest.mark.parametrize("kind", ["dyyolo", "dysoem"])
+@pytest.mark.parametrize("kind", ["dyyolo", "dysoem", "rtm"])
 def test_detections_are_the_same_with_tracing_on(detectors, kind):
     x = _frames(2)
     off = detectors[kind](x)
@@ -250,7 +253,7 @@ def test_span_off_is_the_shared_noop():
     assert tracing.span("post", frames=3) is tracing._OFF
 
 
-@pytest.mark.parametrize("kind", ["dyyolo", "dysoem"])
+@pytest.mark.parametrize("kind", ["dyyolo", "dysoem", "rtm"])
 def test_cut_at_spans_marks_every_section_boundary(detectors, kind):
     """A call under ``cut_at_spans`` reports each section as it starts and,
     at its end, the return to the span around it (detect's own work, and

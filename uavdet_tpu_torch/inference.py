@@ -32,13 +32,13 @@ every launch of a call (``_Graphs``). It graphs only what ``graph_safe``
 finds safe from the call itself: a CUDA device, no mesh, the model in eval
 mode, no autocast, nothing compiling or exporting. The capture is cut at
 the spans of ``tracing``: one graph per section (``stem``, ``tail``,
-``front``, ``soem``, ``neck``, ``post``) and for ``detect``'s own work, in
-one memory pool, each replayed inside its section's span, so the
-profiler still gives each section its kernels. The frames are copied into
-the graphs' static buffers and the Detections copied out: a call's answer
-is never overwritten by a later call. ``kernels.launch_counts`` counts a
-replay's launches as the capture counted them. ``Detector.forward`` itself
-stays eager.
+``front``, ``soem``, ``neck``, ``post``; RTMUAVDet's, below) and for
+``detect``'s own work, in one memory pool, each replayed inside its
+section's span, so the profiler still gives each section its kernels. The
+frames are copied into the graphs' static buffers and the Detections
+copied out: a call's answer is never overwritten by a later call.
+``kernels.launch_counts`` counts a replay's launches as the capture counted
+them. ``Detector.forward`` itself stays eager.
 
 ``decode_all_heads`` and ``decode_topk_heads`` (with ``_topk_wide``) are the
 JAX package's other two decodes, kept with its contracts; no detector path
@@ -70,7 +70,9 @@ its benchmark, ``bench.py``'s cfg4): ``preprocess``, the eval-mode
 forward, the decoded heads to pixels, per image the top ``pre_nms_topk`` by
 objectness (``_topk_wide``: the lower index first on ties, as
 ``lax.top_k``) and greedy NMS through ``batched_nms``, so the NMS kernel on
-the card.
+the card. On a card its call is replayed as CUDA graphs cut at its spans
+(the model's ``stem``, ``csp``, ``fuse``, ``norm``, ``mdy``, ``mlp``,
+``head``, then ``post``) by the same ``_Graphs``, under the same rules.
 """
 
 import gc
@@ -460,8 +462,8 @@ def _check_full_weights(model) -> None:
 
 
 def graph_safe(device: torch.device, model, mesh=None) -> bool:
-    """Whether a call of ``make_detector``'s detect on frames on ``device``
-    may be replayed as CUDA graphs: on a CUDA device, with no ``mesh`` (the
+    """Whether a call of a detector's detect on frames on ``device`` may be
+    replayed as CUDA graphs: on a CUDA device, with no ``mesh`` (the
     sharded and spatial detects and their collectives stay eager), the
     model in eval mode, autocast off, and nothing compiling, exporting,
     tracing or capturing a graph around the call."""
@@ -622,18 +624,18 @@ class _GraphSet:
 
 
 class _Graphs:
-    """``make_detector``'s call, replayed as CUDA graphs where
-    ``graph_safe`` allows: one ``_GraphSet`` per input signature (the
-    frames' shapes, dtypes and device), captured at the signature's second
-    call (the first, eager, warms up caches, cuDNN's algorithms and the
-    kernels' library outside the graphs' pool), for at most ``KEEP``
-    signatures; other calls run eagerly. The graphs read the model's
-    weights where they lie: a change in place shows in the next replay,
-    and a parameter or buffer that moved (replaced, or a ``to()``;
-    ``_Weights``) drops every graph. Non-contiguous frames run eagerly (a
-    graph copies frames into contiguous buffers). A capture that fails
-    warns, runs the call eagerly and leaves its signature seen once: the
-    next call tries again. Each call counts ``graph_replay``,
+    """A detector's call (``make_detector``'s, ``make_rtm_detector``'s),
+    replayed as CUDA graphs where ``graph_safe`` allows: one ``_GraphSet``
+    per input signature (the frames' shapes, dtypes and device), captured
+    at the signature's second call (the first, eager, warms up caches,
+    cuDNN's algorithms and the kernels' library outside the graphs' pool),
+    for at most ``KEEP`` signatures; other calls run eagerly. The graphs
+    read the model's weights where they lie: a change in place shows in the
+    next replay, and a parameter or buffer that moved (replaced, or a
+    ``to()``; ``_Weights``) drops every graph. Non-contiguous frames run
+    eagerly (a graph copies frames into contiguous buffers). A capture that
+    fails warns, runs the call eagerly and leaves its signature seen once:
+    the next call tries again. Each call counts ``graph_replay``,
     ``graph_capture`` or ``graph_eager`` (``tracing.count``)."""
 
     KEEP = 4   # signatures with graphs; the signatures seen once, as many
@@ -785,7 +787,14 @@ def make_rtm_detector(model, input_size: int, det_scales: Sequence[int],
     ``compute_dtype`` None is the model's own; ``alive_fn`` is the NMS
     survivor mask (``nms_alive_plain`` holds the kernel against the plain
     path); ``mesh`` the sharded detect, as ``make_detector``'s. There is no
-    RTMUAVDet under ``sp`` (nor in the JAX package): ``spatial`` raises."""
+    RTMUAVDet under ``sp`` (nor in the JAX package): ``spatial`` raises.
+
+    On a card the call (``preprocess``, the model, ``post``) is replayed as
+    CUDA graphs cut at its spans, by the same ``_Graphs`` as
+    ``make_detector``'s and under the same rules (``graph_safe``; one set
+    per input signature, captured at its second call): the model's 14
+    sections and ``post`` each a graph replayed inside its span. Every call
+    returns tensors of its own."""
     if spatial:
         raise ValueError("make_rtm_detector has no spatial (sp) detect: the "
                          "JAX package serves RTMUAVDet only whole (bench.py's "
@@ -807,14 +816,18 @@ def make_rtm_detector(model, input_size: int, det_scales: Sequence[int],
             scores=torch.where(valid, torch.gather(top_s, 1, safe), 0.0),
             valid=valid)
 
+    def call(x) -> Detections:
+        dtype = compute_dtype or next(model.parameters()).dtype
+        outs = model(preprocess(x, input_size, dtype))
+        with span("post"):
+            return post(outs)
+
+    graphs = _Graphs(call, model, mesh)
+
     @torch.inference_mode()
     def detect(images) -> Detections:
         with span("detect", frames=len(images)):
-            param = next(model.parameters())
-            x = preprocess(torch.as_tensor(images, device=param.device),
-                           input_size, compute_dtype or param.dtype)
-            outs = model(x)
-            with span("post"):
-                return post(outs)
+            device = next(model.parameters()).device
+            return graphs(torch.as_tensor(images, device=device))
 
     return detect if mesh is None else _on_rows(detect, model, mesh)

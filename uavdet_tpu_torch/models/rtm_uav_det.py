@@ -42,6 +42,15 @@ single grouped conv with the channels as the batch (``spatial_dyconv``).
 
 Dropout draws its mask from the ``generator`` passed to ``forward``
 (torch's default generator where none is), active in training only.
+
+Spans (``tracing.span``), flat, in forward order: ``stem`` (``StemLayer``),
+``csp`` (each ``MDyCSPModule``), ``fuse`` (``MFDFEncoderModule``'s bilinear
+upsample, ``upsample_conv`` and cat; later its ``downsample`` and cat),
+``norm`` (each GroupNorm(1) of an ``MDyEncoder``), ``mdy`` (an encoder's
+three MDyConvs, their cat and the residual add), ``mlp`` (``mlp_fc1``,
+GELU, dropout, ``mlp_fc2``) and ``head`` (``RTMHead``): 14 sections a
+forward. No section holds another, so a call captured as CUDA graphs cut
+at the spans replays each inside its own span.
 """
 
 from typing import Sequence
@@ -53,6 +62,7 @@ from torch import nn
 
 from ..ops.boxes import box_convert, box_iou_pairwise
 from ..ops.resize import bilinear_resize
+from ..tracing import span
 from ..utils.datatypes import DetectionResults
 from .layers import BatchNorm2d
 
@@ -148,9 +158,10 @@ class MDyCSPModule(nn.Module):
         self.transition2 = RTMConvModule(2 * half, out_channels, 3, 1, 1)
 
     def forward(self, x):
-        x = self.base_conv(x)
-        x1 = self.transition1(self.mdy_conv(self.conv1(x)))
-        return self.transition2(torch.cat([x1, self.conv2(x)], dim=1))
+        with span("csp"):
+            x = self.base_conv(x)
+            x1 = self.transition1(self.mdy_conv(self.conv1(x)))
+            return self.transition2(torch.cat([x1, self.conv2(x)], dim=1))
 
 
 class Dropout(nn.Module):
@@ -185,13 +196,17 @@ class MDyEncoder(nn.Module):
 
     def forward(self, x, generator=None):
         residual = x
-        x = self.group_norm_in(x)
-        x = torch.cat([self.mdy_conv_1x1(x), self.mdy_conv_3x3(x),
-                       self.mdy_conv_5x5(x)], dim=1)
-        x = self.group_norm_out(x + residual)
-        # flax's nn.gelu is the tanh approximation
-        x = F.gelu(self.mlp_fc1(x), approximate="tanh")
-        return self.mlp_fc2(self.dropout(x, generator))
+        with span("norm"):
+            x = self.group_norm_in(x)
+        with span("mdy"):
+            x = torch.cat([self.mdy_conv_1x1(x), self.mdy_conv_3x3(x),
+                           self.mdy_conv_5x5(x)], dim=1) + residual
+        with span("norm"):
+            x = self.group_norm_out(x)
+        with span("mlp"):
+            # flax's nn.gelu is the tanh approximation
+            x = F.gelu(self.mlp_fc1(x), approximate="tanh")
+            return self.mlp_fc2(self.dropout(x, generator))
 
 
 class MFDFEncoderModule(nn.Module):
@@ -203,11 +218,14 @@ class MFDFEncoderModule(nn.Module):
         self.encoder_x2 = MDyEncoder(x2_c_in + x1_c_in, x2_c_in)
 
     def forward(self, x1, x2, generator=None):
-        _, _, h, w = x2.shape
-        up = bilinear_resize(x2.permute(0, 2, 3, 1), 2 * h, 2 * w)
-        f = self.upsample_conv(up.permute(0, 3, 1, 2))
-        x1 = self.encoder_x1(torch.cat([x1, f], dim=1), generator)
-        x2 = torch.cat([x2, self.downsample(x1)], dim=1)
+        with span("fuse"):
+            _, _, h, w = x2.shape
+            up = bilinear_resize(x2.permute(0, 2, 3, 1), 2 * h, 2 * w)
+            f = self.upsample_conv(up.permute(0, 3, 1, 2))
+            x1 = torch.cat([x1, f], dim=1)
+        x1 = self.encoder_x1(x1, generator)
+        with span("fuse"):
+            x2 = torch.cat([x2, self.downsample(x1)], dim=1)
         return x1, self.encoder_x2(x2, generator)
 
 
@@ -271,10 +289,14 @@ class RTMUAVDet(nn.Module):
                 generator: torch.Generator | None = None):
         """x: (B, H, W, C) NHWC frames in [0, 1]. -> one DetectionResults
         per head, float32. ``generator``: the dropout's, in training."""
-        x = x.to(self.dtype).permute(0, 3, 1, 2)   # NCHW view of NHWC memory
-        x1 = self.MDyCSP_1(self.stem(x))
+        with span("stem"):
+            x = x.to(self.dtype).permute(0, 3, 1, 2)   # NCHW view of NHWC
+            x = self.stem(x)
+        x1 = self.MDyCSP_1(x)
         x2 = self.MDyCSP_2(x1)
-        return self.head(self.neck(x1, x2, generator))
+        feats = self.neck(x1, x2, generator)
+        with span("head"):
+            return self.head(feats)
 
 
 def filter_high_iou_bboxes(p_bbox: torch.Tensor, p_obj: torch.Tensor,

@@ -13,10 +13,11 @@ The detector marks its sections with ``span(name)``: ``detect`` around each
 call of a detector (``frames`` its batch), and inside it ``stem`` and
 ``tail`` (DyYOLO: the stem kernels with their weight mixing, then the rest
 of the model and its heads), ``front``, ``soem`` (one per SOEM) and
-``neck`` (DySOEM_SimFPN), and ``post`` (decode, top-k, threshold, NMS and
-the gathers of the fixed-shape result). Work in no section, such as the
-resize of ``preprocess`` or a BaselineModel's whole forward, is
-``detect``'s own time.
+``neck`` (DySOEM_SimFPN), ``stem``, ``csp``, ``fuse``, ``norm``, ``mdy``,
+``mlp`` and ``head`` (RTMUAVDet, ``models/rtm_uav_det.py``), and ``post``
+(decode, top-k, threshold, NMS and the gathers of the fixed-shape result).
+Work in no section, such as the resize of ``preprocess`` or a
+BaselineModel's whole forward, is ``detect``'s own time.
 
 Tracing is off unless ``collect`` is on: ``span`` then returns one shared
 object that does nothing, after a single check of a module-level flag
@@ -33,7 +34,8 @@ run inside ``collect``. While ``torch.compile`` or ``torch.export`` traces
 (``torch.compiler.is_compiling()``), a span does nothing, so an exported
 detector is the same program with tracing on or off.
 
-**Under CUDA graphs.** ``make_detector``'s detect on a card captures a
+**Under CUDA graphs.** ``make_detector``'s detect (and
+``make_rtm_detector``'s) on a card captures a
 call as CUDA graphs cut at the spans (``cut_at_spans``): one graph per
 section, in the order the call ran them, and one for each stretch of
 ``detect``'s own work that launched something. A replayed call opens
@@ -49,13 +51,13 @@ the detector is).
 
 **Counters.** ``count(name, frames)`` adds one event to ``Trace.counts``
 under ``name``, in the same form as a span's counts, and does nothing with
-tracing off. Each call of ``make_detector``'s detect counts one of
-``graph_replay`` (the call's graphs were replayed), ``graph_capture`` (the
-call was captured as graphs and then replayed: the second call of an input
-signature) and ``graph_eager`` (it ran eagerly: on the CPU, a mesh, a model
-in training mode, under autocast or a trace, the first call of a
-signature, or a detector that already holds graphs of as many signatures
-as it keeps).
+tracing off. Each call of ``make_detector``'s or ``make_rtm_detector``'s
+detect counts one of ``graph_replay`` (the call's graphs were replayed),
+``graph_capture`` (the call was captured as graphs and then replayed: the
+second call of an input signature) and ``graph_eager`` (it ran eagerly: on
+the CPU, a mesh, a model in training mode, under autocast or a trace, the
+first call of a signature, or a detector that already holds graphs of as
+many signatures as it keeps).
 """
 
 import contextlib
