@@ -10,7 +10,7 @@ nor PyYAML. The phases, in order:
 
   0. the card: name and power limit (nvidia-smi); TF32 off, so that the
      plain versions' f32 convolutions stay f32;
-  1. builds the seven CUDA kernels from ``uavdet_tpu_torch/csrc`` (nvcc,
+  1. builds the eight CUDA kernels from ``uavdet_tpu_torch/csrc`` (nvcc,
      sm_90a, one nvcc per source, all at once), and beside them the nvJPEG
      library of the data path (``csrc/io/jpeg.cu``);
   2. kernel A (stem L1) against its plain version, on uint8 frames
@@ -55,6 +55,12 @@ nor PyYAML. The phases, in order:
      biases, where every output depends on the zero padding of the two
      inner activations; each twice, bitwise equal; then its path,
      ``uavdet_tpu_torch.scripts.block_ablate``;
+  5n. the group_norm1 kernel (RTMUAVDet's GroupNorm(1) in inference)
+     against its plain version in bf16 and a float64 GroupNorm in float32
+     at ``ops.group_norm.GN1_EDGE_SHAPES`` (H W off a multiple of 8, a
+     sample under one chunk, B = 1, C = 1, a map whose mean is 1e3 times its
+     spread), and in bf16 at RTMUAVDet's served maps (8, 192, 160, 160) and
+     (8, 384, 80, 80); each twice, bitwise;
   6. main path 1: full-width DyYOLO (conf/model/dy-yolo.yaml widths), bf16,
      seeded random weights, answers 3 requests of 16 uint8 640x640 frames
      through ``make_detector``; checks the results and the launch counts
@@ -143,8 +149,8 @@ nor PyYAML. The phases, in order:
   7l. RTMUAVDet at cfg4's shape (``bench.py``: 640 px, batch 8): full width
      (1,918,742 parameters), bf16, seeded weights, 3 requests of uint8
      frames through ``inference.make_rtm_detector``; the NMS kernel once
-     per request and no other kernel; the detections against the same
-     detector with the plain NMS;
+     and the group_norm1 kernel four times per request, no other kernel;
+     the detections against the same detector with the plain NMS;
   7m. its training at cfg5's shape: 4 Adam steps (lr 1e-4) of
      ``training.rtm.make_rtm_train_step`` at 640 px, batch 8, bf16
      autocast over float32 parameters: losses finite, parameters moved,
@@ -268,12 +274,14 @@ nor PyYAML. The phases, in order:
      per update and peak memory, in turns; a ``{"pp": ...}`` JSON line);
      7k's DyYOLO artifact against the live detector, in turns; the host's
      time to issue one call of kernels A, B and C through their registered
-     operators and through the CUDA wrappers called directly; RTMUAVDet's
-     detector per batch of 8, the NMS kernel on its candidates (8, 512)
-     beside its plain version and bound, and a cfg5 step (an ``{"rtm":
-     ...}`` JSON line, with 7n's readings); then 7r's bench lines beside
-     this phase's reading of the same cell (a ``{"bench": ...}`` JSON
-     line);
+     operators and through the CUDA wrappers called directly; the
+     group_norm1 kernel at RTMUAVDet's served maps beside its plain
+     version, ``F.group_norm`` and its bound (a ``{"group_norm1": ...}``
+     JSON line); RTMUAVDet's detector per batch of 8, the NMS kernel on
+     its candidates (8, 512) beside its plain version and bound, and a
+     cfg5 step (an ``{"rtm": ...}`` JSON line, with 7n's readings); then
+     7r's bench lines beside this phase's reading of the same cell (a
+     ``{"bench": ...}`` JSON line);
   9. a ``torch.profiler`` window of each detector, of 7k's DyYOLO artifact,
      of two cfg6 train microbatches, of two 7q pp updates, of the RTMUAVDet
      detector and of two cfg5 steps: device time by kernel.
@@ -379,6 +387,10 @@ F32_LOGIT_TOL = 1e-3
 # parameters (the flax init's count, tests/test_torch_rtm.py holds the
 # port's equal to it)
 RTM_BATCH, RTM_SIZE, RTM_PARAMS = 8, 640, 1_918_742
+# the group_norm1 kernel (5n, 8): the maps of RTMUAVDet's two MDyEncoders at
+# its served batch, 8 x 640 px, (B, C, H, W) bf16
+GN1_SERVED_SHAPES = ((8, 192, 160, 160), (8, 384, 80, 80))
+GN1_EPS = 1e-5
 RTM_TRAIN_STEPS = 4
 RTM_PARITY_SIZE, RTM_PARITY_BATCH, RTM_PARITY_STEPS = 64, 2, 3
 # the mosaic path (7n): the Lanczos-4 resize's card-vs-CPU cases, (source,
@@ -474,6 +486,10 @@ KERNELS = {
                       "scripts/l2_ablate.py:27"),
     "post_stem_block": ("uavdet_tpu_torch/csrc/post_stem_block.cu",
                         "scripts/block_ablate.py:44"),
+    "group_norm1": ("uavdet_tpu_torch/csrc/group_norm1.cu",
+                    "replaces no TPU kernel (the JAX package leaves "
+                    "GroupNorm to XLA); plain version "
+                    "ops/group_norm.py:group_norm1_plain"),
 }
 # launches per request on each main path; a kernel not named is launched 0
 # times there
@@ -508,8 +524,9 @@ EXPECTED_LAUNCHES = {
     # per batch of evaluate over a ported reference checkpoint (7k)
     "evaluate entry point, ported checkpoint": {"stem_l1": 1, "stem_l2": 1,
                                                 "nms": 1},
-    # per request of make_rtm_detector (7l), per step of cfg5 (7m)
-    "RTMUAVDet": {"nms": 1},
+    # per request of make_rtm_detector (7l: each MDyEncoder's two
+    # GroupNorm(1)s), per step of cfg5 (7m: nn.GroupNorm in training)
+    "RTMUAVDet": {"nms": 1, "group_norm1": 4},
     "RTMUAVDet train step": {},
     "RTMUAVDet float32 train step": {},
     # per batch of the mosaic pipeline, per validation batch of train.main
@@ -544,7 +561,7 @@ EXPECTED_LAUNCHES = {
     "bench cfg1": {"nms": 1},
     "bench cfg2": {"stem_l1": 1, "stem_l2": 1, "nms": 1},
     "bench cfg3": {"nms": 1, "dyconv": 3},
-    "bench cfg4": {"nms": 1},
+    "bench cfg4": {"nms": 1, "group_norm1": 4},
     "bench cfg5": {},
     "bench cfg6": {},
     "bench host-data": {"stem_l1": 1, "stem_l2": 1, "nms": 1},
@@ -687,7 +704,8 @@ def check_requests(smoke, results, batch: int) -> None:
 KERNEL_SYMBOLS = {"stem_l1": ("stem_l1_kernel",),
                   "stem_l2": ("stem_l2_kernel",),
                   "nms": ("nms_kernel", "nms_mask_kernel"),
-                  "dyconv": ("dyconv_kernel",)}
+                  "dyconv": ("dyconv_kernel",),
+                  "group_norm1": ("gn1_moments",)}
 
 
 def check_replay(smoke, path: str, detect, twin, *frames):
@@ -882,6 +900,108 @@ def library_dyconv(x, k, mul, add):
     a = add.to(torch.bfloat16)[:, :, None, None]
     return lambda: F.silu(F.conv2d(xq, wq, padding=1, groups=b).reshape(
         b, co, h, w) * m + a)
+
+
+def gn1_operands(shape, dtype, gen, device, shift=0.0):
+    """x (B, C, H, W) of unit spread around ``shift``, weight in [0.5,
+    1.5], bias around 0, all of ``dtype``."""
+    import torch
+    c = shape[1]
+    x = torch.randn(shape, generator=gen, device=device) + shift
+    weight = 0.5 + torch.rand(c, generator=gen, device=device)
+    bias = 0.5 * torch.randn(c, generator=gen, device=device)
+    return x.to(dtype), weight.to(dtype), bias.to(dtype)
+
+
+def gn1_close(got, want, x, weight) -> tuple:
+    """(ok, detail): bf16 within one bf16 unit in the last place of each
+    value of ``want``, or of 1/256 of its largest |value| where that is
+    larger (the output is rounded once; near 0, f32 errors of some 1e-7
+    exceed a unit of the value); float32 within 1e-5 of the largest |value|
+    plus four f32 units of max |x| * max |rstd * weight|, the affine's
+    largest term (tests/test_torch_group_norm.py's limits)."""
+    import torch
+    diff = (got.double() - want.double()).abs()
+    top = float(want.abs().max())
+    if got.dtype == torch.bfloat16:
+        _, e = torch.frexp(want.float().abs().clamp_min(
+            max(top / 256, 2.0 ** -120)))
+        unit = torch.ldexp(torch.ones_like(diff), (e - 8).to(torch.int32))
+        units = float((diff / unit).max())
+        return units <= 1.0, f"max {units:.3f} bf16 units (limit 1)"
+    xd = x.double().reshape(x.shape[0], -1)
+    a = float(weight.double().abs().max() / xd.std(1, correction=0).min())
+    tol = 1e-5 * top + 4 * 2.0 ** -24 * float(xd.abs().max()) * a
+    err = float(diff.max())
+    return err <= tol, f"max_abs_err {err:.4g} (limit {tol:.4g})"
+
+
+def group_norm1_checks(smoke, dev, gen) -> None:
+    """5n: the group_norm1 kernel against its plain version (bf16) or a
+    float64 GroupNorm (float32) at ``ops.group_norm.GN1_EDGE_SHAPES`` and, in
+    bf16, at RTMUAVDet's served shapes; each launch twice, bitwise equal
+    (no atomics)."""
+    import torch
+    import torch.nn.functional as F
+    from uavdet_tpu_torch.ops.group_norm import (GN1_EDGE_SHAPES,
+                                                 group_norm1_plain)
+    cases = [((b, c, h, w), shift, dtype) for b, c, h, w, shift in
+             GN1_EDGE_SHAPES for dtype in (torch.float32, torch.bfloat16)]
+    cases += [(shape, 0.0, torch.bfloat16) for shape in GN1_SERVED_SHAPES]
+    with torch.inference_mode():
+        for shape, shift, dtype in cases:
+            x, w, b = gn1_operands(shape, dtype, gen, dev, shift)
+            got = torch.ops.uavdet.group_norm1(x, w, b, GN1_EPS)
+            want = (group_norm1_plain(x, w, b, GN1_EPS) if dtype ==
+                    torch.bfloat16 else F.group_norm(
+                        x.double(), 1, w.double(), b.double(), GN1_EPS))
+            label = f"group_norm1 {shape} {dtype} shift {shift:g}"
+            smoke.check(label, *gn1_close(got, want, x, w))
+            again = torch.ops.uavdet.group_norm1(x, w, b, GN1_EPS)
+            smoke.check(f"{label}: twice", torch.equal(again, got),
+                        "bitwise equal")
+
+
+def group_norm1_times(dev, gen, tag) -> list:
+    """Phase 8's group_norm1 rows at RTMUAVDet's served shapes, bf16: the
+    kernel (one launch between two events, back to back, and its two
+    kernels' profiler rows), the plain version and ``F.group_norm``
+    (PyTorch's GroupNorm, which the served path called before), in turns;
+    beside the bound, each byte of x read once and each of y written
+    once."""
+    import torch
+    import torch.nn.functional as F
+    from uavdet_tpu_torch.ops.group_norm import group_norm1_plain
+    rows = []
+    with torch.inference_mode():
+        for shape in GN1_SERVED_SHAPES:
+            x, w, b = gn1_operands(shape, torch.bfloat16, gen, dev)
+            fns = {
+                "kernel": lambda: torch.ops.uavdet.group_norm1(x, w, b,
+                                                               GN1_EPS),
+                "plain": lambda: group_norm1_plain(x, w, b, GN1_EPS),
+                "library": lambda: F.group_norm(x, 1, w, b, GN1_EPS)}
+            ms = {k: [] for k in fns}
+            for k in list(fns) + list(reversed(fns)):
+                ms[k].append(cuda_ms(fns[k]))
+            row = {"shape": list(shape),
+                   **{f"{k}_ms": min(v) for k, v in ms.items()},
+                   "back_to_back_ms": back_to_back_ms(fns["kernel"]),
+                   "profiler_row_ms": kernel_row_ms(fns["kernel"], "gn1_",
+                                                    ITERS),
+                   "library_row_ms": kernel_row_ms(fns["library"], "",
+                                                   ITERS),
+                   **bound(2 * nbytes(x) + 2 * nbytes(w), 10 * x.numel(),
+                           F32_FLOPS)}
+            rows.append(row)
+            print(f"group_norm1 {shape} bf16: kernel {ms['kernel']} ms "
+                  f"({row['back_to_back_ms']:.4f} back to back, "
+                  f"{row['profiler_row_ms']} by the profiler), "
+                  f"plain {ms['plain']} ms, F.group_norm {ms['library']} ms "
+                  f"({row['library_row_ms']} by the profiler), bound "
+                  f"{row['bound_ms']:.4f} ms ({row['bound_by']}) {tag}")
+    print(json.dumps({"group_norm1": rows}))
+    return rows
 
 
 def painted_batch(gen, device, batch: int, size: int,
@@ -3018,6 +3138,7 @@ def main() -> int:
     smoke.phase("5e kernel E", kernel_e)
     smoke.phase("5f kernel F", kernel_f)
     smoke.phase("5g kernel G", kernel_g)
+    smoke.phase("5n group_norm1", group_norm1_checks, smoke, dev, gen)
 
     detect = make_detector(model, DYYOLO, SIZE)
     anchors = DYYOLO.anchors
@@ -4359,6 +4480,8 @@ def main() -> int:
     smoke.phase("8 timing: training", timing_train)
 
     def timing_rtm():
+        rows = group_norm1_times(dev, gen, tag)
+        smoke.stats["group_norm1"].update(rows[0], sites=rows)
         out = rtm.timing()
         smoke.stats["nms"]["rtm"] = out["nms"]
         phase8.update(cfg4=out["detector"]["fps"],

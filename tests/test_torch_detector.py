@@ -140,7 +140,7 @@ def test_cpu_detector_launches_no_kernel(rng, models):
         torch.from_numpy(_frames(rng, 1)))
     assert kernels.launch_counts() == dict.fromkeys(
         ("stem_l1", "stem_l2", "nms", "dyconv", "stem_fused",
-         "stem_l2_stage", "post_stem_block"), 0)
+         "stem_l2_stage", "post_stem_block", "group_norm1"), 0)
 
 
 def test_port_imports_no_jax():

@@ -82,7 +82,7 @@ def load_detector(blob: bytes) -> Callable:
     on the device the artifact was made for. Registers the kernels'
     operators first (see the module's docstring).
     """
-    from .ops import block, dyconv, nms, stem  # noqa: F401  torch.ops.uavdet
+    from .ops import block, dyconv, group_norm, nms, stem  # noqa: F401
 
     program = torch.export.load(io.BytesIO(blob))
     module = program.module()

@@ -147,6 +147,10 @@ STEM_L2_STAGE = CudaKernel("uavdet_stem_l2_stage", [_P, _P, _P, _I, _I, _I,
 # (x, w1, k2, k3, b1, b2, b3, out, B, H, W, stage, stream)
 POST_STEM_BLOCK = CudaKernel("uavdet_post_stem_block", [
     _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P])
+# (x, x_is_bf16, weight, bias, y, workspace, B, C, HW, S, eps, stream): two
+# kernels, moments and apply, counted as one
+GROUP_NORM1 = CudaKernel("uavdet_group_norm1", [
+    _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _P])
 
 # Measuring aids of the NMS kernel, on no path and so not in ALL: the kernel
 # with the global timer read after each of its two phases
@@ -158,7 +162,7 @@ NMS_EMPTY = CudaKernel("uavdet_nms_empty_launch", [_I, _P])
 
 ALL = {"stem_l1": STEM_L1, "stem_l2": STEM_L2, "nms": NMS, "dyconv": DYCONV,
        "stem_fused": STEM_FUSED, "stem_l2_stage": STEM_L2_STAGE,
-       "post_stem_block": POST_STEM_BLOCK}
+       "post_stem_block": POST_STEM_BLOCK, "group_norm1": GROUP_NORM1}
 
 
 def launch_counts() -> dict:

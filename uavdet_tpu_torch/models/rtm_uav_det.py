@@ -23,7 +23,11 @@ models do), module names those of the flax tree (``utils/weights.py``
                      (``spatial_dyconv``), plus the residual
 * ``MDyCSPModule``   CSP split with an MDyConv compute path
 * ``MDyEncoder``     GroupNorm(1) -> 1x1/3x3/5x5 MDyConvs -> residual ->
-                     GroupNorm(1) -> channel MLP with tanh-GELU and dropout
+                     GroupNorm(1) -> channel MLP with tanh-GELU and dropout;
+                     in eval mode without autocast each GroupNorm(1) goes
+                     through ``ops.group_norm.group_norm1`` (a kernel on a
+                     card; the modules hold its weight, bias and eps), in
+                     training through ``nn.GroupNorm`` and its autograd
 * ``MFDFEncoderModule`` bilinear-upsample cross-scale fusion
                      (``ops.resize.bilinear_resize``, the JAX package's)
 * ``RTMHead``        sigmoid heads (in float32) and the grid/anchor decode
@@ -46,11 +50,13 @@ Dropout draws its mask from the ``generator`` passed to ``forward``
 Spans (``tracing.span``), flat, in forward order: ``stem`` (``StemLayer``),
 ``csp`` (each ``MDyCSPModule``), ``fuse`` (``MFDFEncoderModule``'s bilinear
 upsample, ``upsample_conv`` and cat; later its ``downsample`` and cat),
-``norm`` (each GroupNorm(1) of an ``MDyEncoder``), ``mdy`` (an encoder's
-three MDyConvs, their cat and the residual add), ``mlp`` (``mlp_fc1``,
-GELU, dropout, ``mlp_fc2``) and ``head`` (``RTMHead``): 14 sections a
-forward. No section holds another, so a call captured as CUDA graphs cut
-at the spans replays each inside its own span.
+``norm`` (each GroupNorm(1) of an ``MDyEncoder``: on a card in eval mode
+the ``group_norm1`` kernel's two launches, each call counted
+``group_norm1``), ``mdy`` (an encoder's three MDyConvs, their cat and the
+residual add), ``mlp`` (``mlp_fc1``, GELU, dropout, ``mlp_fc2``) and
+``head`` (``RTMHead``): 14 sections a forward. No section holds another,
+so a call captured as CUDA graphs cut at the spans replays each inside its
+own span.
 """
 
 from typing import Sequence
@@ -61,6 +67,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.boxes import box_convert, box_iou_pairwise
+from ..ops.group_norm import group_norm1
 from ..ops.resize import bilinear_resize
 from ..tracing import span
 from ..utils.datatypes import DetectionResults
@@ -194,15 +201,23 @@ class MDyEncoder(nn.Module):
         self.dropout = Dropout(0.2)
         self.mlp_fc2 = nn.Conv2d(c_in, out_channels, 1)
 
+    def norm(self, gn: nn.GroupNorm, x):
+        """``gn(x)``: in eval mode without autocast through the
+        ``group_norm1`` kernel (the plain version on the CPU); in training
+        (and under autocast, which takes GroupNorm to f32) the module."""
+        if self.training or torch.is_autocast_enabled(x.device.type):
+            return gn(x)
+        return group_norm1(x, gn)
+
     def forward(self, x, generator=None):
         residual = x
         with span("norm"):
-            x = self.group_norm_in(x)
+            x = self.norm(self.group_norm_in, x)
         with span("mdy"):
             x = torch.cat([self.mdy_conv_1x1(x), self.mdy_conv_3x3(x),
                            self.mdy_conv_5x5(x)], dim=1) + residual
         with span("norm"):
-            x = self.group_norm_out(x)
+            x = self.norm(self.group_norm_out, x)
         with span("mlp"):
             # flax's nn.gelu is the tanh approximation
             x = F.gelu(self.mlp_fc1(x), approximate="tanh")
