@@ -18,8 +18,13 @@ respect to the heads' outputs to 1e-4 against ``jax.value_and_grad``. The
 detector: ``make_rtm_detector`` against the JAX package's cfg4 detect
 (``bench.py:158-186``, rebuilt here from ``RTMUAVDet.apply``,
 ``lax.top_k`` and ``uavdet_tpu.ops.nms.nms``): ``valid`` equal, scores to
-rtol 1e-4, boxes to 1e-4 px plus 1e-5 of their size.
+rtol 1e-4, boxes to 1e-4 px plus 1e-5 of their size; and bitwise against
+its own composition (``preprocess``, the eval model, ``rtm_candidates``,
+``_topk_wide``, ``batched_nms`` with ``nms_alive_plain``), with
+``_topk_wide`` in one sort and in two stages.
 """
+
+import copy
 
 import flax
 import jax
@@ -32,11 +37,13 @@ from flax import linen
 from tests.test_torch_train_step import one_torch_thread  # noqa: F401
 from uavdet_tpu.models import rtm_uav_det as jrtm
 from uavdet_tpu.ops.nms import nms as jax_nms
-from uavdet_tpu_torch import kernels
-from uavdet_tpu_torch.inference import make_rtm_detector
+from uavdet_tpu_torch import inference, kernels
+from uavdet_tpu_torch.inference import (_topk_wide, make_rtm_detector,
+                                        preprocess, rtm_candidates)
 from uavdet_tpu_torch.models import build_model
 from uavdet_tpu_torch.models import rtm_uav_det as trtm
 from uavdet_tpu_torch.models.registry import DYYOLO
+from uavdet_tpu_torch.ops.nms import batched_nms, nms_alive_plain
 from uavdet_tpu_torch.utils.weights import (load_flax_variables,
                                             rtm_state_dict_from_flax)
 
@@ -359,6 +366,48 @@ def test_rtm_detector_matches_bench_detect(rtm):
     np.testing.assert_allclose(d.boxes.numpy(), want_b, rtol=1e-5,
                                atol=1e-4)
     assert (d.boxes[~d.valid] == 0).all() and (d.scores[~d.valid] == 0).all()
+
+
+@pytest.mark.parametrize("batch,chunk,obj_shift", [
+    (1, inference._TOPK_CHUNK, 0.0), (3, inference._TOPK_CHUNK, 0.0),
+    (1, 128, 0.0), (3, 128, 0.0), (3, 128, -8.0)])
+def test_rtm_detector_is_bitwise_its_composition(rtm, batch, chunk,
+                                                 obj_shift, monkeypatch):
+    """``make_rtm_detector``'s Detections, bit for bit, are those of its
+    pieces composed by hand: ``preprocess`` in the model's dtype, the eval
+    model, ``rtm_candidates``, ``_topk_wide``, the boxes' gather,
+    ``batched_nms`` and the gathers and ``where``s of the fixed-shape
+    result, with no score threshold. A chunk of 128 takes ``_topk_wide``'s
+    two-stage path (960 candidates at 64 px, 8 chunks). The model's
+    probabilities lie in 0.12-0.81; an objectness bias moved by -8 brings
+    them to about 1e-5-1e-3, where any threshold above 0 would show."""
+    monkeypatch.setattr(inference, "_TOPK_CHUNK", chunk)
+    tm = copy.deepcopy(rtm[2])
+    with torch.no_grad():
+        for h in range(len(SCALES)):
+            getattr(tm.head, f"obj_{h}").bias += obj_shift
+    topk, max_det = 96, 40
+    images = np.random.default_rng(batch).integers(
+        0, 256, (batch, SIZE, SIZE, 3), dtype=np.uint8)
+    got = make_rtm_detector(tm, SIZE, SCALES, pre_nms_topk=topk,
+                            max_det=max_det)(images)
+    with torch.inference_mode():
+        outs = tm(preprocess(torch.from_numpy(images), SIZE, torch.float32))
+        boxes, scores = rtm_candidates(outs, SIZE, SCALES)
+        top_s, top_i = _topk_wide(scores, topk)
+        top_b = torch.gather(boxes, 1, top_i[..., None].expand(batch, topk,
+                                                               4))
+        keep, _, _ = batched_nms(top_b, top_s, 0.5, max_det,
+                                 alive_fn=nms_alive_plain)
+        valid = keep >= 0
+        safe = keep.clamp_min(0)
+        want_b = torch.where(valid[..., None], torch.gather(
+            top_b, 1, safe[..., None].expand(batch, max_det, 4)), 0.0)
+        want_s = torch.where(valid, torch.gather(top_s, 1, safe), 0.0)
+    assert 0 < int(valid.sum()) < valid.numel()
+    assert torch.equal(got.valid, valid)
+    assert torch.equal(got.boxes, want_b)
+    assert torch.equal(got.scores, want_s)
 
 
 def test_rtm_is_not_dispatchable():

@@ -1,78 +1,72 @@
 """End-to-end inference of the port: frames -> detections.
 
 Port of ``uavdet_tpu/inference.py`` (``preprocess``, ``preprocess_dual``,
-``decode_topk_global``, ``make_detector``) for a DyYOLO, a BaselineModel or
-a DySOEM_SimFPN:
+``decode_topk_global``, ``make_detector``). ``Detector`` is the one
+detector of every family, an ``nn.Module`` holding the model, which
+``export.py`` traces:
 
-  1. DyYOLO: uint8 NHWC frames at the detector's size go straight into the
-     stem's kernel A (/255 is folded into its weights); other frames are
-     resized and normalized by ``preprocess`` first. Any other model: every
-     frame goes through ``preprocess``, which only normalizes (/255) frames
-     that are already at the detector's size;
-  2. DyYOLO: the two-pass dynamic-conv stem (``ops/stem.py``, kernels A and
-     B), then the rest of the model. A model without that stem runs whole;
-     a bf16 DySOEM_SimFPN runs its three SOEMs through kernel D
-     (``ops/dyconv.py``);
-  3. one global top-k over the objectness logits of all heads, and the
-     decode of the survivors only; the head strides come from the shapes;
-  4. greedy NMS (``ops/nms.py``, the NMS kernel), fixed-shape Detections.
-
-The dual-stream detector (``dual=True``) takes an RGB and an infrared batch
-at their native sizes, brings both to the detector's grid in
-``preprocess_dual`` and detects them as one batch of 2B frames; with DyYOLO
-the preprocessed bf16 frames go through the stem kernels.
+  1. ``prepare``: DyYOLO's uint8 NHWC frames at the detector's size go
+     straight into the stem's kernel A (/255 is folded into its weights);
+     any other frames go through ``preprocess``, which only normalizes
+     (/255) frames already at the detector's size. With ``dual`` an RGB
+     and an infrared batch at their native sizes are brought to the grid
+     by ``preprocess_dual`` and detected as one batch of 2B frames;
+  2. ``heads``: DyYOLO through the two-pass dynamic-conv stem
+     (``ops/stem.py``, kernels A and B), then the rest of the model; any
+     other model runs whole (a bf16 DySOEM_SimFPN's SOEMs through kernel D,
+     ``ops/dyconv.py``);
+  3. ``candidates``, the one step where the families differ: the heads ->
+     score-sorted candidates. YOLO heads: one global top-k over the
+     objectness logits of all heads and the decode of the survivors, the
+     head strides from the shapes. An RTMUAVDet (``RTMDetector``, built by
+     ``make_rtm_detector``; the JAX package serves it only in its
+     benchmark, ``bench.py``'s cfg4): its decoded heads to pixels, then per
+     image the top ``pre_nms_topk`` probabilities (``_topk_wide``: the
+     lower index first on ties, as ``lax.top_k``);
+  4. ``select_detections``: the score threshold, greedy NMS (``ops/nms.py``,
+     the NMS kernel) and fixed-shape Detections.
 
 A model whose parameters live on a CUDA device runs the kernels; on the CPU
-the same code runs their plain PyTorch versions. ``Detector`` is the same
-program as one ``nn.Module`` holding the model, which ``export.py`` traces.
+the same code runs their plain PyTorch versions.
 
-On a card, ``make_detector``'s detect replays ``Detector``'s call as CUDA
+``make_detector`` and ``make_rtm_detector`` both serve through ``_serve``:
+one ``detect(*frames)`` that opens the ``detect`` span and moves the frames
+to the model's device. On a card it replays the ``Detector``'s call as CUDA
 graphs, one set per input signature, so that the host no longer issues
-every launch of a call (``_Graphs``). It graphs only what ``graph_safe``
-finds safe from the call itself: a CUDA device, no mesh, the model in eval
-mode, no autocast, nothing compiling or exporting. The capture is cut at
-the spans of ``tracing``: one graph per section (``stem``, ``tail``,
-``front``, ``soem``, ``neck``, ``post``; RTMUAVDet's, below) and for
-``detect``'s own work, in one memory pool, each replayed inside its
-section's span, so the profiler still gives each section its kernels. The
-frames are copied into the graphs' static buffers and the Detections
-copied out: a call's answer is never overwritten by a later call.
-``kernels.launch_counts`` counts a replay's launches as the capture counted
-them. ``Detector.forward`` itself stays eager.
+every launch (``_Graphs``), where ``graph_safe`` finds it safe from the
+call itself: a CUDA device, no mesh, the model in eval mode, no autocast,
+nothing compiling or exporting. The capture is cut at the spans of
+``tracing``: one graph per section (DyYOLO's ``stem``, ``tail``; the
+others' model sections; ``post``) and for ``detect``'s own work, in one
+memory pool, each replayed inside its section's span, so the profiler
+still gives each section its kernels. The frames are copied into the
+graphs' static buffers and the Detections copied out: a call's answer is
+never overwritten by a later call. ``kernels.launch_counts`` counts a
+replay's launches as the capture counted them.
 
-``decode_all_heads`` and ``decode_topk_heads`` (with ``_topk_wide``) are the
-JAX package's other two decodes, kept with its contracts; no detector path
-calls them (the detector keeps ``decode_topk_global``).
-
-With a ``mesh`` (``parallel.make_mesh``) every detector is the sharded
-detect of the JAX package's ``make_detector(mesh=)``: each rank takes the
-global batch, detects its own rows (``parallel.row_block`` of its place on
-the data x fsdp x ep axes) through the same detector, so kernels A, B and
-C run per rank on its rows, and the fixed-shape ``Detections`` of every
-rank are gathered in the global order onto every rank. The model must hold
-its full weights (a plain module, not an FSDP2 one and without ``ep``
-slices: kernels A, B and D read the expert weights as plain tensors).
+With a ``mesh`` (``parallel.make_mesh``) ``detect`` is the sharded detect
+of the JAX package's ``make_detector(mesh=)``: each rank takes the global
+batch, detects its own rows (``parallel.row_block`` of its place on the
+data x fsdp x ep axes) through the same detector, so the kernels run per
+rank on its rows, and the fixed-shape ``Detections`` of every rank are
+gathered in the global order onto every rank. The model must hold its full
+weights (a plain module, not an FSDP2 one and without ``ep`` slices:
+kernels A, B and D read the expert weights as plain tensors).
 
 With ``spatial=True`` as well (the JAX ``make_detector(mesh=,
-spatial=True)``), each rank of an ``sp`` group runs the body on its band of
-the frames' rows (``parallel.row_band``): DyYOLO's stem through kernels A
-and B on the band with its halo rows, cut from the frames every rank holds
-(``ops.stem.fused_stem_rows``), then the tail with every 3x3 conv
-exchanging its halo; a DySOEM_SimFPN's SOEMs through kernel D on halo'd
-bands; a BaselineModel whole. The heads' bands are gathered over the group
-(``parallel.gather_rows``), and every rank decodes and runs kernel C on
-its rows' whole heads, once per request. Unlike the JAX package, which
-turns its Pallas stem off under a mesh, the kernels run on every rank.
+spatial=True)``; no RTMUAVDet), each rank of an ``sp`` group runs the body
+on its band of the frames' rows (``parallel.row_band``): DyYOLO's stem
+through kernels A and B on the band with its halo rows, cut from the
+frames every rank holds (``ops.stem.fused_stem_rows``), then the tail with
+every 3x3 conv exchanging its halo; a DySOEM_SimFPN's SOEMs through kernel
+D on halo'd bands; a BaselineModel whole. The heads' bands are gathered
+over the group (``parallel.gather_rows``), and every rank decodes and runs
+kernel C on its rows' whole heads, once per request. Unlike the JAX
+package, which turns its Pallas stem off under a mesh, the kernels run on
+every rank.
 
-``make_rtm_detector`` serves an RTMUAVDet, which ``make_detector`` does not
-take (as in the JAX package, whose only RTMUAVDet detector is the one of
-its benchmark, ``bench.py``'s cfg4): ``preprocess``, the eval-mode
-forward, the decoded heads to pixels, per image the top ``pre_nms_topk`` by
-objectness (``_topk_wide``: the lower index first on ties, as
-``lax.top_k``) and greedy NMS through ``batched_nms``, so the NMS kernel on
-the card. On a card its call is replayed as CUDA graphs cut at its spans
-(the model's ``stem``, ``csp``, ``fuse``, ``norm``, ``mdy``, ``mlp``,
-``head``, then ``post``) by the same ``_Graphs``, under the same rules.
+``decode_all_heads`` and ``decode_topk_heads`` are the JAX package's other
+two decodes, kept with its contracts; no detector calls them.
 """
 
 import gc
@@ -200,8 +194,10 @@ def _topk_wide(logits: torch.Tensor, k: int):
     (values, indices), taken in two stages where n is wide.
 
     The chunking was a workaround for the TPU's ``top_k``, slow at
-    DySOEM-1280 widths (n about 1.6 M); on the card this stays a plain
-    function that no detector path calls. Past 4 chunks of ``_TOPK_CHUNK``
+    DySOEM-1280 widths (n about 1.6 M). On the card it runs in
+    ``RTMDetector.candidates``: at 640 px an RTMUAVDet has 3 x (160^2 +
+    80^2) = 96,000 candidates a frame, 6 chunks; no chip run has compared
+    it with one stable sort yet. Past 4 chunks of ``_TOPK_CHUNK``
     (with k at most one chunk) each chunk keeps its first k by a stable
     sort, and a stable sort of the survivors, laid out in chunk order,
     picks the k. Values and indices, ties included, are then exactly the
@@ -323,8 +319,12 @@ class Detector(nn.Module):
     """The detector as one module holding ``model``: ``forward(images)``, or
     with ``dual`` ``forward(rgb, ir)``, takes frames on the model's device
     and returns (boxes, scores, valid) as ``Detections`` holds them.
-    ``make_detector`` calls it; ``export.export_detector`` traces it, so
-    the model's weights travel in the artifact."""
+    ``make_detector`` and ``make_rtm_detector`` serve it;
+    ``export.export_detector`` traces it, so the model's weights travel in
+    the artifact. ``compute_dtype`` None is the model's own, read at the
+    call; ``hparams`` None gives no anchors, for a subclass with its own
+    ``candidates``. ``alive_fn``, the NMS survivor mask (see batched_nms),
+    is ``nms_alive``; ``RTMDetector`` takes its own."""
 
     def __init__(self, model, hparams, input_size: int,
                  score_threshold: float = 0.001, nms_iou: float = 0.5,
@@ -333,7 +333,8 @@ class Detector(nn.Module):
                  dual: bool = False):
         super().__init__()
         self.model = model
-        self.anchors = np.asarray(hparams.anchors, np.float32)
+        self.anchors = (None if hparams is None
+                        else np.asarray(hparams.anchors, np.float32))
         self.input_size = input_size
         self.score_threshold = score_threshold
         self.nms_iou = nms_iou
@@ -341,6 +342,7 @@ class Detector(nn.Module):
         self.max_det = max_det
         self.compute_dtype = compute_dtype
         self.dual = dual
+        self.alive_fn = nms_alive
         self.stem = detector_stem_fast_path(model)
         self.sp = None   # (group, index, n) of the spatial detect
 
@@ -374,15 +376,22 @@ class Detector(nn.Module):
                                  obj=gather_rows(o.obj, group, dim=2))
                 for o in outs]
 
+    def candidates(self, outs):
+        """YOLO heads -> score-sorted candidates, boxes (B, k, 4) xyxy
+        pixels and scores (B, k): the global top-k of the objectness logits
+        and the decode of the survivors."""
+        scales = [self.input_size // o.obj.shape[3] for o in outs]
+        return decode_topk_global(outs, self.anchors, scales,
+                                  self.pre_nms_topk)
+
     def post(self, outs) -> Detections:
-        """The heads -> Detections: the global top-k and decode, then the
-        threshold and NMS (kernel C on the card)."""
+        """The heads -> Detections: the candidates, then the threshold and
+        NMS (kernel C on the card)."""
         with span("post"):
-            scales = [self.input_size // o.obj.shape[3] for o in outs]
-            boxes, scores = decode_topk_global(outs, self.anchors, scales,
-                                               self.pre_nms_topk)
+            boxes, scores = self.candidates(outs)
             return select_detections(boxes, scores, self.score_threshold,
-                                     self.nms_iou, self.max_det)
+                                     self.nms_iou, self.max_det,
+                                     self.alive_fn)
 
     def body(self, x) -> Detections:
         """x: frames at the detector's grid, raw uint8 (stem kernels only)
@@ -393,7 +402,8 @@ class Detector(nn.Module):
         """The frames ``forward`` takes -> what ``body`` takes: uint8 frames
         at the detector's size stay as they are for the stem kernels, any
         other frames are preprocessed."""
-        size, dtype = self.input_size, self.compute_dtype
+        size = self.input_size
+        dtype = self.compute_dtype or next(self.model.parameters()).dtype
         if self.dual:
             return preprocess_dual(x, ir, size, dtype)
         if self.stem is not None and x.dtype == torch.uint8 \
@@ -624,7 +634,7 @@ class _GraphSet:
 
 
 class _Graphs:
-    """A detector's call (``make_detector``'s, ``make_rtm_detector``'s),
+    """A ``Detector``'s call, through ``_serve`` for every family,
     replayed as CUDA graphs where ``graph_safe`` allows: one ``_GraphSet``
     per input signature (the frames' shapes, dtypes and device), captured
     at the signature's second call (the first, eager, warms up caches,
@@ -693,6 +703,28 @@ class _Graphs:
         return g.replay(frames, spans=False)
 
 
+def _serve(det: Detector, mesh=None):
+    """``detect(*frames) -> Detections`` of ``det``, for ``make_detector``
+    and ``make_rtm_detector``: the frames (one batch, or with ``dual`` the
+    RGB and the infrared one) moved to the model's device, inside the
+    ``detect`` span; on a card replayed as CUDA graphs (``_Graphs``); with
+    a ``mesh`` the sharded detect (``_on_rows``)."""
+    model = det.model
+    graphs = _Graphs(det, model, mesh)
+
+    @torch.inference_mode()
+    def detect(*frames) -> Detections:
+        with span("detect", frames=sum(len(f) for f in frames)):
+            device = next(model.parameters()).device
+            return graphs(*(torch.as_tensor(f, device=device)
+                            for f in frames))
+
+    if mesh is None:
+        return detect
+    _check_full_weights(model)
+    return _on_rows(detect, model, mesh)
+
+
 def make_detector(model, hparams, input_size: int,
                   score_threshold: float = 0.001, nms_iou: float = 0.5,
                   pre_nms_topk: int = 512, max_det: int = 300,
@@ -737,25 +769,7 @@ def make_detector(model, hparams, input_size: int,
         row_band(0, n, input_size, model_stride(model))
         if n > 1:
             det.sp = (sp_group(mesh), coordinate(mesh)[2], n)
-    if mesh is not None:
-        _check_full_weights(model)
-    graphs = _Graphs(det, model, mesh)
-
-    @torch.inference_mode()
-    def detect(images) -> Detections:
-        with span("detect", frames=len(images)):
-            device = next(model.parameters()).device
-            return graphs(torch.as_tensor(images, device=device))
-
-    @torch.inference_mode()
-    def detect_dual(rgb, ir) -> Detections:
-        with span("detect", frames=len(rgb) + len(ir)):
-            device = next(model.parameters()).device
-            return graphs(torch.as_tensor(rgb, device=device),
-                          torch.as_tensor(ir, device=device))
-
-    fn = detect_dual if dual else detect
-    return fn if mesh is None else _on_rows(fn, model, mesh)
+    return _serve(det, mesh)
 
 
 def rtm_candidates(outs, input_size: int, det_scales: Sequence[int]):
@@ -774,6 +788,29 @@ def rtm_candidates(outs, input_size: int, det_scales: Sequence[int]):
     return torch.cat(boxes, dim=1), torch.cat(scores, dim=1)
 
 
+class RTMDetector(Detector):
+    """An RTMUAVDet's ``Detector``: only its candidate rule differs. Its
+    scores are the heads' probabilities, so its threshold of 0 keeps every
+    candidate."""
+
+    def __init__(self, model, input_size: int, det_scales: Sequence[int],
+                 pre_nms_topk: int, nms_iou: float, max_det: int,
+                 compute_dtype: torch.dtype | None, alive_fn):
+        super().__init__(model, None, input_size, 0.0, nms_iou,
+                         pre_nms_topk, max_det, compute_dtype)
+        self.det_scales = tuple(det_scales)
+        self.alive_fn = alive_fn
+
+    def candidates(self, outs):
+        """The decoded heads in pixels, per image the top ``pre_nms_topk``
+        by probability (``_topk_wide``) and their boxes."""
+        boxes, scores = rtm_candidates(outs, self.input_size, self.det_scales)
+        top_s, top_i = _topk_wide(scores, min(self.pre_nms_topk,
+                                              scores.shape[1]))
+        return torch.gather(boxes, 1, top_i[..., None].expand(*top_i.shape,
+                                                              4)), top_s
+
+
 def make_rtm_detector(model, input_size: int, det_scales: Sequence[int],
                       pre_nms_topk: int = 512, nms_iou: float = 0.5,
                       max_det: int = 300,
@@ -781,53 +818,21 @@ def make_rtm_detector(model, input_size: int, det_scales: Sequence[int],
                       alive_fn=nms_alive, mesh=None, spatial: bool = False):
     """``detect(images) -> Detections`` for an RTMUAVDet in eval mode: the
     unfolded detect of the JAX package's cfg4 (``bench.py:158-186``) with
-    the boxes kept beside the scores. NHWC frames (B, H, W, 3), uint8 or
-    float in [0, 1], are moved to the model's device; no score threshold
-    (the scores are the heads' probabilities); invalid slots are zero.
-    ``compute_dtype`` None is the model's own; ``alive_fn`` is the NMS
-    survivor mask (``nms_alive_plain`` holds the kernel against the plain
-    path); ``mesh`` the sharded detect, as ``make_detector``'s. There is no
-    RTMUAVDet under ``sp`` (nor in the JAX package): ``spatial`` raises.
-
-    On a card the call (``preprocess``, the model, ``post``) is replayed as
-    CUDA graphs cut at its spans, by the same ``_Graphs`` as
-    ``make_detector``'s and under the same rules (``graph_safe``; one set
-    per input signature, captured at its second call): the model's 14
-    sections and ``post`` each a graph replayed inside its span. Every call
-    returns tensors of its own."""
+    the boxes kept beside the scores, served as ``make_detector``'s is
+    (``_serve``: the same graphs, span and sharded detect) by an
+    ``RTMDetector``. NHWC frames (B, H, W, 3), uint8 or float in [0, 1],
+    are moved to the model's device; no score threshold (the scores are
+    the heads' probabilities); invalid slots are zero. ``compute_dtype``
+    None is the model's own; ``alive_fn`` is the NMS survivor mask
+    (``nms_alive_plain`` holds the kernel against the plain path); ``mesh``
+    the sharded detect, as ``make_detector``'s. There is no RTMUAVDet under
+    ``sp`` (nor in the JAX package): ``spatial`` raises. On a card the
+    model's 14 sections and ``post`` are each a graph replayed inside its
+    span. Every call returns tensors of its own."""
     if spatial:
         raise ValueError("make_rtm_detector has no spatial (sp) detect: the "
                          "JAX package serves RTMUAVDet only whole (bench.py's "
                          "cfg4); pass spatial=False and shard the batch")
-
-    def post(outs) -> Detections:
-        boxes, scores = rtm_candidates(outs, input_size, det_scales)
-        k = min(pre_nms_topk, scores.shape[1])
-        top_s, top_i = _topk_wide(scores, k)
-        top_b = torch.gather(boxes, 1, top_i[..., None].expand(*top_i.shape,
-                                                               4))
-        keep, _, _ = batched_nms(top_b, top_s, nms_iou, max_det, alive_fn)
-        valid = keep >= 0
-        safe = keep.clamp_min(0)
-        out_b = torch.gather(top_b, 1, safe[..., None].expand(*safe.shape,
-                                                              4))
-        return Detections(
-            boxes=torch.where(valid[..., None], out_b, 0.0),
-            scores=torch.where(valid, torch.gather(top_s, 1, safe), 0.0),
-            valid=valid)
-
-    def call(x) -> Detections:
-        dtype = compute_dtype or next(model.parameters()).dtype
-        outs = model(preprocess(x, input_size, dtype))
-        with span("post"):
-            return post(outs)
-
-    graphs = _Graphs(call, model, mesh)
-
-    @torch.inference_mode()
-    def detect(images) -> Detections:
-        with span("detect", frames=len(images)):
-            device = next(model.parameters()).device
-            return graphs(torch.as_tensor(images, device=device))
-
-    return detect if mesh is None else _on_rows(detect, model, mesh)
+    return _serve(RTMDetector(model, input_size, det_scales, pre_nms_topk,
+                              nms_iou, max_det, compute_dtype, alive_fn),
+                  mesh)

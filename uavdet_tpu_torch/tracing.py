@@ -34,8 +34,8 @@ run inside ``collect``. While ``torch.compile`` or ``torch.export`` traces
 (``torch.compiler.is_compiling()``), a span does nothing, so an exported
 detector is the same program with tracing on or off.
 
-**Under CUDA graphs.** ``make_detector``'s detect (and
-``make_rtm_detector``'s) on a card captures a
+**Under CUDA graphs.** The one serving detect (``inference._serve``,
+behind ``make_detector`` and ``make_rtm_detector``) on a card captures a
 call as CUDA graphs cut at the spans (``cut_at_spans``): one graph per
 section, in the order the call ran them, and one for each stretch of
 ``detect``'s own work that launched something. A replayed call opens
@@ -51,13 +51,12 @@ the detector is).
 
 **Counters.** ``count(name, frames)`` adds one event to ``Trace.counts``
 under ``name``, in the same form as a span's counts, and does nothing with
-tracing off. Each call of ``make_detector``'s or ``make_rtm_detector``'s
-detect counts one of ``graph_replay`` (the call's graphs were replayed),
-``graph_capture`` (the call was captured as graphs and then replayed: the
-second call of an input signature) and ``graph_eager`` (it ran eagerly: on
-the CPU, a mesh, a model in training mode, under autocast or a trace, the
-first call of a signature, or a detector that already holds graphs of as
-many signatures as it keeps).
+tracing off. Each call of that detect counts one of ``graph_replay`` (the
+call's graphs were replayed), ``graph_capture`` (the call was captured as
+graphs and then replayed: the second call of an input signature) and
+``graph_eager`` (it ran eagerly: on the CPU, a mesh, a model in training
+mode, under autocast or a trace, the first call of a signature, or a
+detector that already holds graphs of as many signatures as it keeps).
 """
 
 import contextlib
