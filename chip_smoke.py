@@ -61,6 +61,12 @@ nor PyYAML. The phases, in order:
      sample under one chunk, B = 1, C = 1, a map whose mean is 1e3 times its
      spread), and in bf16 at RTMUAVDet's served maps (8, 192, 160, 160) and
      (8, 384, 80, 80); each twice, bitwise;
+  5o. the bn_act kernel (the conv blocks' epilogue in inference: BatchNorm
+     from its running statistics, LeakyReLU or SiLU, the residual) against
+     its plain version at ``ops.bn_act.BN_ACT_EDGE_SHAPES`` in both layouts,
+     both activations, with and without a residual, the BatchNorm's vectors
+     bf16 and float32, and at the served maps ``BN_ACT_SERVED``; bitwise
+     with LeakyReLU, within one bf16 unit with SiLU; each twice, bitwise;
   6. main path 1: full-width DyYOLO (conf/model/dy-yolo.yaml widths), bf16,
      seeded random weights, answers 3 requests of 16 uint8 640x640 frames
      through ``make_detector``; checks the results and the launch counts
@@ -277,7 +283,9 @@ nor PyYAML. The phases, in order:
      operators and through the CUDA wrappers called directly; the
      group_norm1 kernel at RTMUAVDet's served maps beside its plain
      version, ``F.group_norm`` and its bound (a ``{"group_norm1": ...}``
-     JSON line); RTMUAVDet's detector per batch of 8, the NMS kernel on
+     JSON line); the bn_act kernel at ``BN_ACT_SERVED`` beside its bound,
+     its plain version and the eager chain it replaces (a ``{"bn_act":
+     ...}`` JSON line); RTMUAVDet's detector per batch of 8, the NMS kernel on
      its candidates (8, 512) beside its plain version and bound, and a
      cfg5 step (an ``{"rtm": ...}`` JSON line, with 7n's readings); then
      7r's bench lines beside this phase's reading of the same cell (a
@@ -298,6 +306,7 @@ import json
 import sys
 import time
 import traceback
+from fractions import Fraction
 
 import numpy as np
 
@@ -391,6 +400,16 @@ RTM_BATCH, RTM_SIZE, RTM_PARAMS = 8, 640, 1_918_742
 # its served batch, 8 x 640 px, (B, C, H, W) bf16
 GN1_SERVED_SHAPES = ((8, 192, 160, 160), (8, 384, 80, 80))
 GN1_EPS = 1e-5
+# the bn_act kernel (5o, 8): (B, C, H, W) bf16 channels_last, activation,
+# residual: DyYOLO's served batch 16 x 640 px (the first ResidualBlock's
+# second block with its skip; the deepest blocks' 512 channels at 40 x 40),
+# DySOEM_SimFPN's 32 x 1280 px (the input stem's map; the neck's highest
+# resolution)
+BN_ACT_SERVED = (((16, 64, 320, 320), "leaky_relu", True),
+                 ((16, 512, 40, 40), "leaky_relu", False),
+                 ((32, 32, 1280, 1280), "silu", False),
+                 ((32, 64, 640, 640), "silu", False))
+BN_ACT_EPS = 1e-5
 RTM_TRAIN_STEPS = 4
 RTM_PARITY_SIZE, RTM_PARITY_BATCH, RTM_PARITY_STEPS = 64, 2, 3
 # the mosaic path (7n): the Lanczos-4 resize's card-vs-CPU cases, (source,
@@ -490,15 +509,26 @@ KERNELS = {
                     "replaces no TPU kernel (the JAX package leaves "
                     "GroupNorm to XLA); plain version "
                     "ops/group_norm.py:group_norm1_plain"),
+    "bn_act": ("uavdet_tpu_torch/csrc/bn_act.cu",
+               "replaces no TPU kernel (XLA fused the conv blocks' epilogue "
+               "into the conv); plain version ops/bn_act.py:bn_act_plain"),
 }
+# the bn_act kernel's launches per call of a bf16 model in eval mode without
+# autocast: DyYOLO's 70 CNNBlocks and DyConvModules after the stem kernels
+# (72 where its two stem DyConvModules run too, and BaselineModel's 72
+# CNNBlocks), DySOEM_SimFPN's input stem and three neck ConvModules; under
+# autocast (the Trainer's validation, the eval step) and in training none
+BN_DYYOLO, BN_DYYOLO_STEM, BN_BASELINE, BN_DYSOEM = 70, 72, 72, 4
 # launches per request on each main path; a kernel not named is launched 0
 # times there
 EXPECTED_LAUNCHES = {
-    "DyYOLO": {"stem_l1": 1, "stem_l2": 1, "nms": 1},
-    "DySOEM_SimFPN": {"nms": 1, "dyconv": 3},
-    "baseline": {"nms": 1},
-    "DyYOLO dual": {"stem_l1": 1, "stem_l2": 1, "nms": 1},
-    "DyYOLO pre_nms_topk 4096": {"stem_l1": 1, "stem_l2": 1, "nms": 1},
+    "DyYOLO": {"stem_l1": 1, "stem_l2": 1, "nms": 1, "bn_act": BN_DYYOLO},
+    "DySOEM_SimFPN": {"nms": 1, "dyconv": 3, "bn_act": BN_DYSOEM},
+    "baseline": {"nms": 1, "bn_act": BN_BASELINE},
+    "DyYOLO dual": {"stem_l1": 1, "stem_l2": 1, "nms": 1,
+                    "bn_act": BN_DYYOLO},
+    "DyYOLO pre_nms_topk 4096": {"stem_l1": 1, "stem_l2": 1, "nms": 1,
+                                 "bn_act": BN_DYYOLO},
     "DySOEM_SimFPN float32": {"nms": 1},
     # per microbatch: training runs the plain modules
     "DyYOLO train step": {},
@@ -507,23 +537,28 @@ EXPECTED_LAUNCHES = {
     "Trainer.fit DyYOLO": {"stem_l1": 1, "stem_l2": 1, "nms": 1},
     "train entry point DyYOLO": {"stem_l1": 1, "stem_l2": 1, "nms": 1},
     # per batch of the evaluate and detect entry points
-    "evaluate entry point DyYOLO": {"stem_l1": 1, "stem_l2": 1, "nms": 1},
-    "detect entry point DyYOLO": {"stem_l1": 1, "stem_l2": 1, "nms": 1},
+    "evaluate entry point DyYOLO": {"stem_l1": 1, "stem_l2": 1, "nms": 1,
+                                    "bn_act": BN_DYYOLO},
+    "detect entry point DyYOLO": {"stem_l1": 1, "stem_l2": 1, "nms": 1,
+                                  "bn_act": BN_DYYOLO},
     # per microbatch fed by the data pipeline
     "DyYOLO train step fed by the pipeline": {},
     "DySOEM_SimFPN eval step": {"dyconv": 3},
     "stem_fused op": {"stem_fused": 1},
     # per call of an artifact of export.export_detector, loaded in a fresh
     # process (7k)
-    "exported DyYOLO": {"stem_l1": 1, "stem_l2": 1, "nms": 1},
-    "exported DySOEM_SimFPN": {"nms": 1, "dyconv": 3},
-    "exported DyYOLO dual": {"stem_l1": 1, "stem_l2": 1, "nms": 1},
-    "exported baseline": {"nms": 1},
+    "exported DyYOLO": {"stem_l1": 1, "stem_l2": 1, "nms": 1,
+                        "bn_act": BN_DYYOLO},
+    "exported DySOEM_SimFPN": {"nms": 1, "dyconv": 3, "bn_act": BN_DYSOEM},
+    "exported DyYOLO dual": {"stem_l1": 1, "stem_l2": 1, "nms": 1,
+                             "bn_act": BN_DYYOLO},
+    "exported baseline": {"nms": 1, "bn_act": BN_BASELINE},
     "exported DyYOLO, scripts.export_detector --ckpt last": {
-        "stem_l1": 1, "stem_l2": 1, "nms": 1},
+        "stem_l1": 1, "stem_l2": 1, "nms": 1, "bn_act": BN_DYYOLO},
     # per batch of evaluate over a ported reference checkpoint (7k)
     "evaluate entry point, ported checkpoint": {"stem_l1": 1, "stem_l2": 1,
-                                                "nms": 1},
+                                                "nms": 1,
+                                                "bn_act": BN_DYYOLO},
     # per request of make_rtm_detector (7l: each MDyEncoder's two
     # GroupNorm(1)s), per step of cfg5 (7m: nn.GroupNorm in training)
     "RTMUAVDet": {"nms": 1, "group_norm1": 4},
@@ -535,8 +570,10 @@ EXPECTED_LAUNCHES = {
     "train entry point DyYOLO, mosaic": {"stem_l1": 1, "stem_l2": 1,
                                          "nms": 1},
     # per request of the sharded detect, on each of the two ranks (7o)
-    "DyYOLO sharded detect, rank 0": {"stem_l1": 1, "stem_l2": 1, "nms": 1},
-    "DyYOLO sharded detect, rank 1": {"stem_l1": 1, "stem_l2": 1, "nms": 1},
+    "DyYOLO sharded detect, rank 0": {"stem_l1": 1, "stem_l2": 1, "nms": 1,
+                                      "bn_act": BN_DYYOLO},
+    "DyYOLO sharded detect, rank 1": {"stem_l1": 1, "stem_l2": 1, "nms": 1,
+                                      "bn_act": BN_DYYOLO},
     # per microbatch of the DDP and FSDP2 steps (7o)
     "DyYOLO train step, placed on a mesh": {},
     # per validation batch of Trainer.fit with multihost, each rank (7o)
@@ -544,10 +581,14 @@ EXPECTED_LAUNCHES = {
     "Trainer.fit multihost, rank 1": {"stem_l1": 1, "stem_l2": 1, "nms": 1},
     # per request of the spatial (sp 2) detect, on each of the two ranks, on
     # its band of rows (7p)
-    "DyYOLO spatial detect, rank 0": {"stem_l1": 1, "stem_l2": 1, "nms": 1},
-    "DyYOLO spatial detect, rank 1": {"stem_l1": 1, "stem_l2": 1, "nms": 1},
-    "DySOEM_SimFPN spatial detect, rank 0": {"nms": 1, "dyconv": 3},
-    "DySOEM_SimFPN spatial detect, rank 1": {"nms": 1, "dyconv": 3},
+    "DyYOLO spatial detect, rank 0": {"stem_l1": 1, "stem_l2": 1, "nms": 1,
+                                      "bn_act": BN_DYYOLO},
+    "DyYOLO spatial detect, rank 1": {"stem_l1": 1, "stem_l2": 1, "nms": 1,
+                                      "bn_act": BN_DYYOLO},
+    "DySOEM_SimFPN spatial detect, rank 0": {"nms": 1, "dyconv": 3,
+                                             "bn_act": BN_DYSOEM},
+    "DySOEM_SimFPN spatial detect, rank 1": {"nms": 1, "dyconv": 3,
+                                             "bn_act": BN_DYSOEM},
     # per microbatch of the sp 2 and ep 2 train steps (7p)
     "DyYOLO train step, sp 2": {},
     "DyYOLO train step, ep 2": {},
@@ -557,30 +598,38 @@ EXPECTED_LAUNCHES = {
     # per timed call (warm-up included) of a bench process (7r): a
     # detector call, a train step, a batch of --host-data, a step of each
     # of --fit-rate's two Trainer.fit runs
-    "bench default": {"stem_l1": 1, "stem_l2": 1, "nms": 1},
-    "bench cfg1": {"nms": 1},
-    "bench cfg2": {"stem_l1": 1, "stem_l2": 1, "nms": 1},
-    "bench cfg3": {"nms": 1, "dyconv": 3},
+    "bench default": {"stem_l1": 1, "stem_l2": 1, "nms": 1,
+                      "bn_act": BN_DYYOLO},
+    "bench cfg1": {"nms": 1, "bn_act": BN_BASELINE},
+    "bench cfg2": {"stem_l1": 1, "stem_l2": 1, "nms": 1, "bn_act": BN_DYYOLO},
+    "bench cfg3": {"nms": 1, "dyconv": 3, "bn_act": BN_DYSOEM},
     "bench cfg4": {"nms": 1, "group_norm1": 4},
     "bench cfg5": {},
     "bench cfg6": {},
-    "bench host-data": {"stem_l1": 1, "stem_l2": 1, "nms": 1},
+    "bench host-data": {"stem_l1": 1, "stem_l2": 1, "nms": 1,
+                        "bn_act": BN_DYYOLO},
     "bench fit-rate": {},
     # per sectioned call of the section probes (7s), warm-up included
-    "section_probe DyYOLO": {"stem_l1": 1, "stem_l2": 1, "nms": 1},
-    "cfg3_section_probe DySOEM_SimFPN": {"nms": 1, "dyconv": 3},
+    "section_probe DyYOLO": {"stem_l1": 1, "stem_l2": 1, "nms": 1,
+                             "bn_act": BN_DYYOLO},
+    "cfg3_section_probe DySOEM_SimFPN": {"nms": 1, "dyconv": 3,
+                                         "bn_act": BN_DYSOEM},
     # per timed call (warm-up included) of each row of scripts.perf_probe
     # (7t); its layer rows together
     "perf_probe detect (stem kernels)": {"stem_l1": 1, "stem_l2": 1,
-                                         "nms": 1},
-    "perf_probe detect (no stem kernels)": {"nms": 1},
+                                         "nms": 1, "bn_act": BN_DYYOLO},
+    "perf_probe detect (no stem kernels)": {"nms": 1,
+                                            "bn_act": BN_DYYOLO_STEM},
     "perf_probe preprocess": {},
     "perf_probe stem (kernels A, B)": {"stem_l1": 1, "stem_l2": 1},
-    "perf_probe tail (all layers after stem)": {},
-    "perf_probe stem (plain layers)": {},
+    "perf_probe tail (all layers after stem)": {"bn_act": BN_DYYOLO},
+    "perf_probe stem (plain layers)": {"bn_act": 2},
     "perf_probe decode+topk+NMS (full-grid decode)": {"nms": 1},
     "perf_probe decode+topk+NMS (logit-topk decode)": {"nms": 1},
-    "perf_probe per-layer rows": {},
+    # the tail's 70 blocks spread over its PERF_PROBE_LAYERS layer rows,
+    # each called as often: 70 / 22 a call on average
+    "perf_probe per-layer rows": {
+        "bn_act": Fraction(BN_DYYOLO, PERF_PROBE_LAYERS)},
     # one run of a ladder's entry point: every stage, warm-up included
     "l2_ablate": {"stem_l2_stage": 5 * (LADDER_ITERS + 3)},
     "block_ablate": {"post_stem_block": 4 * (LADDER_ITERS + 3)},
@@ -705,7 +754,8 @@ KERNEL_SYMBOLS = {"stem_l1": ("stem_l1_kernel",),
                   "stem_l2": ("stem_l2_kernel",),
                   "nms": ("nms_kernel", "nms_mask_kernel"),
                   "dyconv": ("dyconv_kernel",),
-                  "group_norm1": ("gn1_moments",)}
+                  "group_norm1": ("gn1_moments",),
+                  "bn_act": ("bn_act_",)}
 
 
 def check_replay(smoke, path: str, detect, twin, *frames):
@@ -1001,6 +1051,141 @@ def group_norm1_times(dev, gen, tag) -> list:
                   f"({row['library_row_ms']} by the profiler), bound "
                   f"{row['bound_ms']:.4f} ms ({row['bound_by']}) {tag}")
     print(json.dumps({"group_norm1": rows}))
+    return rows
+
+
+def bn_act_operands(shape, layout, residual, gen, device, params=None):
+    """x (B, C, H, W) bf16 of spread 2 in ``layout`` (a memory format), a
+    BatchNorm's running mean, variance in [0.05, 4] and affine around 1 and
+    0 (bf16, or ``params``), a residual in x's layout or None."""
+    import torch
+    c = shape[1]
+    bf16 = torch.bfloat16
+
+    def map_(std):
+        return (std * torch.randn(shape, generator=gen, device=device)).to(
+            bf16).contiguous(memory_format=layout)
+    x = map_(2.0)
+    vectors = [torch.randn(c, generator=gen, device=device),
+               0.05 + 3.95 * torch.rand(c, generator=gen, device=device),
+               0.5 + torch.rand(c, generator=gen, device=device),
+               0.5 * torch.randn(c, generator=gen, device=device)]
+    vectors = [v.to(params or bf16) for v in vectors]
+    return x, *vectors, (map_(1.0) if residual else None)
+
+
+def bn_act_close(got, want, act) -> tuple:
+    """(ok, detail): LeakyReLU bitwise (both sides the same f32 steps);
+    SiLU within one bf16 unit in the last place of each value, or of 1/256
+    of the largest |value| where that is larger (the kernel's SiLU takes
+    the special-function unit's exp2 and reciprocal, the plain version
+    PyTorch's)."""
+    import torch
+    if act == "leaky_relu":
+        diff = int((got != want).sum())
+        return diff == 0, f"{diff} values differ (bitwise)"
+    top = float(want.abs().max())
+    _, e = torch.frexp(want.float().abs().clamp_min(
+        max(top / 256, 2.0 ** -120)))
+    diff = (got.double() - want.double()).abs()
+    unit = torch.ldexp(torch.ones_like(diff), (e - 8).to(torch.int32))
+    units = float((diff / unit).max())
+    return units <= 1.0, f"max {units:.3f} bf16 units (limit 1)"
+
+
+def bn_act_checks(smoke, dev, gen) -> None:
+    """5o: the bn_act kernel against its plain version at
+    ``ops.bn_act.BN_ACT_EDGE_SHAPES`` (both layouts, both activations, with
+    and without a residual, bf16 and float32 vectors) and at
+    ``BN_ACT_SERVED``, one sample at a time (the plain version's float32
+    copies of a 1280 px batch would take some 30 GB beside what earlier
+    phases hold); each launch twice, bitwise equal."""
+    import torch
+    from uavdet_tpu_torch.ops.bn_act import BN_ACT_EDGE_SHAPES, bn_act_plain
+    layouts = {"nchw": torch.contiguous_format,
+               "channels_last": torch.channels_last}
+    cases = [(shape, layout, act, res, params)
+             for shape in BN_ACT_EDGE_SHAPES for layout in layouts
+             for act in ("leaky_relu", "silu") for res in (False, True)
+             for params in (torch.bfloat16, torch.float32)]
+    cases += [(shape, "channels_last", act, res, torch.bfloat16)
+              for shape, act, res in BN_ACT_SERVED]
+    with torch.inference_mode():
+        for shape, layout, act, res, params in cases:
+            x, m, v, w, b, r = bn_act_operands(shape, layouts[layout], res,
+                                               gen, dev, params)
+            got = torch.ops.uavdet.bn_act(x, m, v, w, b, BN_ACT_EPS, act, r)
+            label = (f"bn_act {shape} {layout} {act} "
+                     f"{'residual ' if res else ''}{params}")
+            worst = (True, "")
+            for i in range(shape[0]):
+                want = bn_act_plain(x[i:i + 1], m, v, w, b, BN_ACT_EPS, act,
+                                    None if r is None else r[i:i + 1])
+                ok, detail = bn_act_close(got[i:i + 1], want, act)
+                if not ok or not worst[1]:
+                    worst = (ok, f"sample {i}: {detail}")
+                if not ok:
+                    break
+            smoke.check(label, worst[0] and got.stride() == x.stride(),
+                        worst[1])
+            again = torch.ops.uavdet.bn_act(x, m, v, w, b, BN_ACT_EPS, act,
+                                            r)
+            smoke.check(f"{label}: twice", torch.equal(again, got),
+                        "bitwise equal")
+    # the 1280 px maps leave some 15 GB in the allocator's cache, which
+    # 7k's fresh process, sharing the card, would miss
+    torch.cuda.empty_cache()
+
+
+def bn_act_times(dev, gen, tag) -> list:
+    """Phase 8's bn_act rows at ``BN_ACT_SERVED``: the kernel (one launch
+    between two events, back to back, and its profiler row), its plain
+    version and the eager chain it replaces (PyTorch's eval BatchNorm, the
+    activation, the add), in turns; beside the bound, each byte of x and
+    the residual read once and each of y written once."""
+    import torch
+    import torch.nn.functional as F
+    from uavdet_tpu_torch.ops.bn_act import bn_act_plain
+    rows = []
+    with torch.inference_mode():
+        for shape, act, res in BN_ACT_SERVED:
+            x, m, v, w, b, r = bn_act_operands(shape, torch.channels_last,
+                                               res, gen, dev)
+            fn = (F.silu if act == "silu"
+                  else lambda t: F.leaky_relu(t, 0.1))
+
+            def chain():
+                y = fn(F.batch_norm(x, m, v, w, b, False, 0.0, BN_ACT_EPS))
+                return y if r is None else y + r
+            fns = {
+                "kernel": lambda: torch.ops.uavdet.bn_act(
+                    x, m, v, w, b, BN_ACT_EPS, act, r),
+                "plain": lambda: bn_act_plain(x, m, v, w, b, BN_ACT_EPS,
+                                              act, r),
+                "chain": chain}
+            ms = {k: [] for k in fns}
+            for k in list(fns) + list(reversed(fns)):
+                ms[k].append(cuda_ms(fns[k]))
+            moved = 2 * nbytes(x) + (0 if r is None else nbytes(r))
+            row = {"shape": list(shape), "act": act, "residual": res,
+                   **{f"{k}_ms": min(v) for k, v in ms.items()},
+                   "back_to_back_ms": back_to_back_ms(fns["kernel"]),
+                   "profiler_row_ms": kernel_row_ms(fns["kernel"],
+                                                    "bn_act_", ITERS),
+                   "chain_row_ms": kernel_row_ms(chain, "", ITERS),
+                   **bound(moved + 4 * nbytes(m), 10 * x.numel(),
+                           F32_FLOPS)}
+            row["share"] = row["bound_ms"] / row["profiler_row_ms"] \
+                if row["profiler_row_ms"] else None
+            rows.append(row)
+            print(f"bn_act {shape} {act}{' + residual' if res else ''}: "
+                  f"kernel {ms['kernel']} ms ({row['back_to_back_ms']:.4f} "
+                  f"back to back, {row['profiler_row_ms']} by the "
+                  f"profiler), plain {ms['plain']} ms, eager chain "
+                  f"{ms['chain']} ms ({row['chain_row_ms']} by the "
+                  f"profiler), bound {row['bound_ms']:.4f} ms "
+                  f"({row['bound_by']}) {tag}")
+    print(json.dumps({"bn_act": rows}))
     return rows
 
 
@@ -3139,6 +3324,7 @@ def main() -> int:
     smoke.phase("5f kernel F", kernel_f)
     smoke.phase("5g kernel G", kernel_g)
     smoke.phase("5n group_norm1", group_norm1_checks, smoke, dev, gen)
+    smoke.phase("5o bn_act", bn_act_checks, smoke, dev, gen)
 
     detect = make_detector(model, DYYOLO, SIZE)
     anchors = DYYOLO.anchors
@@ -4083,6 +4269,7 @@ def main() -> int:
         finally:
             os.chdir(here)
 
+        torch.cuda.empty_cache()   # the fresh process shares the card
         t0 = time.perf_counter()
         res = subprocess.run(
             [sys.executable, "-c", LOADER, json.dumps(jobs)], cwd=repo,
@@ -4488,6 +4675,12 @@ def main() -> int:
                       cfg5=out["train"]["images_per_s"])
 
     smoke.phase("8 timing: RTMUAVDet", timing_rtm)
+
+    def timing_bn_act():
+        rows = bn_act_times(dev, gen, tag)
+        smoke.stats["bn_act"].update(rows[0], sites=rows)
+
+    smoke.phase("8 timing: bn_act", timing_bn_act)
 
     def bench_beside_phase8():
         """7r's lines beside phase 8's reading of the same cell: three

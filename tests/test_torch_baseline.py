@@ -210,5 +210,5 @@ def test_cpu_paths_launch_no_kernel(rng, baselines, dyyolo_stem):
         torch.from_numpy(_frames(rng, 1, 30, 36)))
     assert set(kernels.launch_counts()) == {
         "stem_l1", "stem_l2", "nms", "dyconv", "stem_fused", "stem_l2_stage",
-        "post_stem_block", "group_norm1"}
+        "post_stem_block", "group_norm1", "bn_act"}
     assert not any(kernels.launch_counts().values())

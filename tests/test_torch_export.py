@@ -212,11 +212,12 @@ def test_dual_artifact(rng, stem_models, one_torch_thread):
 
 
 def test_dysoem_artifact(rng, one_torch_thread):
-    """A bf16 DySOEM_SimFPN: its three SOEMs call kernel D's operator."""
+    """A bf16 DySOEM_SimFPN: its three SOEMs call kernel D's operator, its
+    input stem's and neck's four ConvModules the epilogue's."""
     model = init_weights(DySOEM_SimFPN(), 5).to(BF16).eval()
     blob = export_detector(model, DYSOEM, SIZE, 2)
-    assert _ops(_program(blob)) == ["uavdet.dyconv.default"] * 3 + [
-        "uavdet.nms_alive.default"]
+    assert _ops(_program(blob)) == ["uavdet.bn_act.default"] * 4 + [
+        "uavdet.dyconv.default"] * 3 + ["uavdet.nms_alive.default"]
     x = _frames(rng, 2)
     _assert_equal_detections(load_detector(blob)(x),
                              make_detector(model, DYSOEM, SIZE)(x))

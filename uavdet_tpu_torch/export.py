@@ -21,8 +21,8 @@ at all: the port's kernels are operators registered with ``torch.library``
 (``torch.ops.uavdet.*``), and a saved program that calls them loads only
 where they are registered. ``load_detector`` therefore imports the modules
 that register them (``ops/stem.py``, ``ops/nms.py``, ``ops/dyconv.py``,
-``ops/block.py``; they import only ``kernels`` and ``ops/boxes``), and
-nothing under ``models/``.
+``ops/block.py``, ``ops/group_norm.py``, ``ops/bn_act.py``), and nothing
+under ``models/``.
 
 An artifact is made for the device of the model's parameters, as the JAX
 package's is made for a platform: a CPU artifact runs the kernels' plain
@@ -82,7 +82,7 @@ def load_detector(blob: bytes) -> Callable:
     on the device the artifact was made for. Registers the kernels'
     operators first (see the module's docstring).
     """
-    from .ops import block, dyconv, group_norm, nms, stem  # noqa: F401
+    from .ops import bn_act, block, dyconv, group_norm, nms, stem  # noqa: F401
 
     program = torch.export.load(io.BytesIO(blob))
     module = program.module()

@@ -151,6 +151,11 @@ POST_STEM_BLOCK = CudaKernel("uavdet_post_stem_block", [
 # kernels, moments and apply, counted as one
 GROUP_NORM1 = CudaKernel("uavdet_group_norm1", [
     _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _P])
+# (x, residual or NULL, y, mean, var, weight, bias, params_bf16, eps, act, B,
+# C, HW, channels_last, grid, stream)
+BN_ACT = CudaKernel("uavdet_bn_act", [
+    _P, _P, _P, _P, _P, _P, _P, _I, ctypes.c_float, _I, _I, _I, _I, _I, _I,
+    _P])
 
 # Measuring aids of the NMS kernel, on no path and so not in ALL: the kernel
 # with the global timer read after each of its two phases
@@ -162,7 +167,8 @@ NMS_EMPTY = CudaKernel("uavdet_nms_empty_launch", [_I, _P])
 
 ALL = {"stem_l1": STEM_L1, "stem_l2": STEM_L2, "nms": NMS, "dyconv": DYCONV,
        "stem_fused": STEM_FUSED, "stem_l2_stage": STEM_L2_STAGE,
-       "post_stem_block": POST_STEM_BLOCK, "group_norm1": GROUP_NORM1}
+       "post_stem_block": POST_STEM_BLOCK, "group_norm1": GROUP_NORM1,
+       "bn_act": BN_ACT}
 
 
 def launch_counts() -> dict:

@@ -15,6 +15,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.bn_act import bn_act
 from ..parallel.batchnorm import global_batch_norm
 from ..parallel.experts import mix_slices
 from ..parallel.spatial import conv2d_rows, halo_for_conv, sp_sum
@@ -41,6 +42,27 @@ def global_mean(x: torch.Tensor, dims, sp_group) -> torch.Tensor:
     count = n * math.prod(x.shape[d] for d in dims)
     acc = torch.promote_types(x.dtype, torch.float32)
     return (sp_sum(x.sum(dim=dims, dtype=acc), sp_group) / count).to(x.dtype)
+
+
+def fused_epilogue(y: torch.Tensor, bn: nn.BatchNorm2d) -> bool:
+    """Whether the epilogue of ``bn`` on the conv output ``y`` takes
+    ``ops.bn_act`` (one pass, the kernel on a card): in inference (``bn`` in
+    eval mode), autocast off, on a bf16 map. Training (the kernel has no
+    backward), autocast and float32 keep PyTorch's BatchNorm, activation
+    and add."""
+    return (not bn.training and y.dtype == torch.bfloat16
+            and not torch.is_autocast_enabled(y.device.type))
+
+
+def epilogue(y: torch.Tensor, bn: nn.BatchNorm2d, act: str,
+             residual: torch.Tensor | None = None) -> torch.Tensor:
+    """``act(bn(y)) [+ residual]`` after a block's conv, ``act``
+    "leaky_relu" (0.1) or "silu": one ``ops.bn_act`` pass where
+    ``fused_epilogue`` says so, else PyTorch's passes."""
+    if fused_epilogue(y, bn):
+        return bn_act(y, bn, act, residual)
+    y = F.leaky_relu(bn(y), 0.1) if act == "leaky_relu" else F.silu(bn(y))
+    return y if residual is None else y + residual
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -80,7 +102,8 @@ class BatchNorm2d(nn.BatchNorm2d):
 
 
 class CNNBlock(nn.Module):
-    """Conv -> BN -> LeakyReLU(0.1). ``sp_group``: see ``conv_rows``."""
+    """Conv -> BN -> LeakyReLU(0.1) [-> + residual]. ``sp_group``: see
+    ``conv_rows``; the epilogue: see ``epilogue``."""
 
     sp_group = None
 
@@ -91,14 +114,14 @@ class CNNBlock(nn.Module):
                               bias=False)
         self.bn = BatchNorm2d(c_out)
 
-    def forward(self, x):
-        return F.leaky_relu(self.bn(conv_rows(self.conv, x, self.sp_group)),
-                            0.1)
+    def forward(self, x, residual=None):
+        return epilogue(conv_rows(self.conv, x, self.sp_group), self.bn,
+                        "leaky_relu", residual)
 
 
 class ConvModule(nn.Module):
     """Conv (no bias) -> BN -> SiLU (``uavdet_tpu/models/layers.py:88``).
-    ``sp_group``: see ``conv_rows``."""
+    ``sp_group``: see ``conv_rows``; the epilogue: see ``epilogue``."""
 
     sp_group = None
 
@@ -110,12 +133,13 @@ class ConvModule(nn.Module):
         self.bn = BatchNorm2d(c_out)
 
     def forward(self, x):
-        return F.silu(self.bn(conv_rows(self.conv, x, self.sp_group)))
+        return epilogue(conv_rows(self.conv, x, self.sp_group), self.bn,
+                        "silu")
 
 
 class ResidualBlock(nn.Module):
     """num_repeats x (1x1 to half the channels -> 3x3 back), with an
-    optional skip."""
+    optional skip, which the second block adds after its activation."""
 
     def __init__(self, channels: int, use_residual: bool = True,
                  num_repeats: int = 1):
@@ -129,8 +153,8 @@ class ResidualBlock(nn.Module):
         self.num_repeats = num_repeats
 
     def forward(self, x):
-        for layer in self.layers:
-            x = layer(x) + x if self.use_residual else layer(x)
+        for first, second in self.layers:
+            x = second(first(x), x if self.use_residual else None)
         return x
 
 
@@ -147,7 +171,7 @@ class ScalePrediction(nn.Module):
 
 class DyConvModule(nn.Module):
     """Dynamic convolution: softmax(GAP-MLP / T) over E expert kernels, the
-    per-sample kernel mixed from them, then BN -> SiLU.
+    per-sample kernel mixed from them, then BN -> SiLU (see ``epilogue``).
 
     3x3: mix the per-sample kernel, then one grouped conv (groups = batch),
     as the reference does. 1x1: mix first, then one batched matmul
@@ -235,7 +259,7 @@ class DyConvModule(nn.Module):
                 # channel in float32 one term after another (1 % off in a
                 # bias gradient of the tiny DyYOLO at 64 px)
                 y = y.contiguous(memory_format=torch.channels_last)
-        return F.silu(self.bn(y))
+        return epilogue(y, self.bn, "silu")
 
 
 class YOLOHead(nn.Module):
